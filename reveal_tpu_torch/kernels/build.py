@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled at first use by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded
+with ``ctypes``.  The library lives in ``reveal_tpu_torch/build/`` under
+a name keyed by a hash of the sources, so an edited source rebuilds and
+an unchanged one loads at once.  A failed build raises; nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def _sources():
+    return sorted(
+        glob.glob(os.path.join(CSRC, "*.cu"))
+        + glob.glob(os.path.join(CSRC, "*.cuh"))
+    )
+
+
+def _nvcc():
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    exe = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(exe):
+        return exe
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME (%s); the CUDA kernels "
+        "of reveal_tpu_torch cannot be built" % home
+    )
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources."""
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(os.path.basename(src).encode())
+        with open(src, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(
+        BUILD_DIR, "libreveal_kernels_%s.so" % h.hexdigest()[:16]
+    )
+
+
+def build() -> str:
+    """Compile the sources if their library is missing; return its
+    path.  Raises ``RuntimeError`` with nvcc's output on failure."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp.%d" % (so, os.getpid())
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            "nvcc failed (exit %d): %s\n%s%s"
+            % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
+        )
+    os.replace(tmp, so)
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library, with every C
+    entry point's ``argtypes``/``restype`` declared."""
+    lib = ctypes.CDLL(build())
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    # (lcp, npad, q, thr, out, rbv, wrv, stream) -> cudaError_t
+    lib.rtt_window_resolve_i32.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp]
+    lib.rtt_window_resolve_i32.restype = ci
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(
+            "%s: CUDA launch failed with cudaError_t %d" % (what, err)
+        )

@@ -1,0 +1,218 @@
+"""The torch port's pairwise ``rem --frontier`` slice end to end on the CPU.
+
+The port (reveal_tpu_torch, forest on the CPU through the plain torch
+path) must write the same GFA bytes as the JAX package's device hybrid
+and as the serial host engine; it must never import jax; and inputs it
+does not cover must raise rather than go to another engine.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import reveal_tpu.align.rem as jax_rem
+import reveal_tpu.index.devloop as jax_devloop
+from reveal_tpu.core.io_fasta import fasta_writer
+from reveal_tpu.core.io_gfa import seq2node, write_gfa
+from reveal_tpu.utils.simulate import simulate_population
+from reveal_tpu_torch.align import rem as port_rem
+from reveal_tpu_torch.core.torchconfig import resolve_device
+from reveal_tpu_torch.index import devloop
+from reveal_tpu_torch.index import window_resolve as wr
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "reveal_tpu_torch"
+
+
+def _write_pair(tmp_path, length, seed=1):
+    pop = simulate_population(2, length, seed=seed)
+    fastas = []
+    for name, seq, _ids in pop:
+        fn = str(tmp_path / (name + ".fa"))
+        fasta_writer(fn, [(name, seq)])
+        fastas.append(fn)
+    return fastas
+
+
+def _gfa(G, idx, fn):
+    seq2node(G, idx.main.T)
+    write_gfa(G, idx.main.T, outputfile=fn)
+    with open(fn, "rb") as fh:
+        return fh.read()
+
+
+def test_slice_matches_jax_hybrid_and_host_engine(tmp_path):
+    """simulate_population(2, 200_000, seed=1): 182 deferred roots, 11
+    levels, 78 repair rounds."""
+    fastas = _write_pair(tmp_path, 200_000)
+    G, idx = jax_rem.align_genomes(fastas, backend="auto")
+    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+
+    G, idx = jax_rem.align_genomes(fastas, backend="auto", frontier=True)
+    jax_stats = dict(jax_devloop.LAST_STATS)
+    jax_gfa = _gfa(G, idx, str(tmp_path / "jax.gfa"))
+
+    before = wr.LAUNCHES
+    G, idx = port_rem.align_genomes(fastas, device="cpu")
+    st = dict(devloop.LAST_STATS)
+    port = _gfa(G, idx, str(tmp_path / "port.gfa"))
+
+    assert jax_stats["abort"] == 0 and jax_stats["forest"] > 0
+    assert st["abort"] == 0 and st["fallback"] is None
+    for k in ("forest", "slots", "levels", "anchors", "repair_steps",
+              "chain_steps", "trim_steps"):
+        assert st[k] == jax_stats[k], k
+    assert st["repair_steps"] > 0
+    assert wr.LAUNCHES == before  # CPU tensors take the plain path
+    assert port == jax_gfa
+    assert port == host
+
+
+_BLOCK_JAX = """
+import runpy, sys
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError("jax is blocked: " + name)
+        return None
+sys.meta_path.insert(0, _NoJax())
+sys.argv = ["reveal_tpu_torch.cli"] + sys.argv[1:]
+runpy.run_module("reveal_tpu_torch.cli", run_name="__main__")
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+"""
+
+
+def test_cli_runs_with_jax_blocked(tmp_path):
+    fastas = _write_pair(tmp_path, 20_000, seed=3)
+    out = str(tmp_path / "port.gfa")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCK_JAX, "rem", *fastas, "--frontier",
+         "--device", "cpu", "-o", out],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    G, idx = jax_rem.align_genomes(fastas, backend="auto")
+    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    with open(out, "rb") as fh:
+        assert fh.read() == host
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, [a.name]
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or "", [a.name for a in node.names]
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_port_source_never_imports_jax(path):
+    banned_mods = ("jax", "jaxlib", "reveal_tpu.core.jaxconfig",
+                   "reveal_tpu.hmm", "reveal_tpu.parallel")
+    banned_names = {"_build_kernel", "_build_kernel_multi",
+                    "_make_window_resolve", "rem_device_loop"}
+    for mod, names in _imports(path):
+        assert not any(
+            mod == b or mod.startswith(b + ".") for b in banned_mods
+        ), (path, mod)
+        if mod == "reveal_tpu.index.devloop":
+            assert not banned_names & set(names), (path, names)
+
+
+def test_resolve_device(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        port_rem.align_genomes(["a.fa", "b.fa"], device="cuda")
+
+
+def test_uncovered_inputs_raise(tmp_path):
+    rng = np.random.default_rng(17)
+    c1 = "".join(rng.choice(list("ACGT"), size=900))
+    c2 = "".join(rng.choice(list("ACGT"), size=700))
+    fa = [str(tmp_path / ("g%d.fa" % i)) for i in range(3)]
+    fasta_writer(fa[0], [("x1", c1)])
+    fasta_writer(fa[1], [("y1", c1[:800] + c2[:50])])
+    fasta_writer(fa[2], [("z1", c1), ("z2", c2)])
+    with pytest.raises(NotImplementedError, match="item 6"):
+        port_rem.align_genomes(fa, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port_rem.align_genomes([fa[0], fa[2]], device="cpu")
+    with pytest.raises(NotImplementedError, match="--notrim"):
+        port_rem.align_genomes(fa[:2], device="cpu", trim=False)
+    with pytest.raises(NotImplementedError):
+        port_rem.align_genomes(fa[:2], device="cpu", frontier=False)
+    with pytest.raises(ValueError):
+        port_rem.align_genomes(fa[:1], device="cpu")
+
+
+def test_kernel_abort_falls_back_to_host_engine(tmp_path, monkeypatch):
+    """On the CPU device a non-retryable abort code (here
+    ABORT_LEVEL_OVERFLOW, forced by a one-level cap) makes the port
+    finish on the host engine, with the host's output and the code
+    recorded."""
+    fastas = _write_pair(tmp_path, 20_000, seed=5)
+    G, idx = jax_rem.align_genomes(fastas, backend="auto")
+    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    monkeypatch.setattr(devloop, "_LMAX", 1)
+    G, idx = port_rem.align_genomes(fastas, device="cpu")
+    st = dict(devloop.LAST_STATS)
+    assert st["abort"] == jax_devloop.ABORT_LEVEL_OVERFLOW, st
+    assert st["fallback"] == "kernel abort code %d" % st["abort"]
+    assert _gfa(G, idx, str(tmp_path / "port.gfa")) == host
+
+
+def _forest_aborts(*_a, **_k):
+    devloop.LAST_STATS.clear()
+    devloop.LAST_STATS["abort"] = jax_devloop.ABORT_DUP_REF
+    return None
+
+
+@pytest.mark.parametrize("stage", ["forest", "prefix"])
+def test_declined_input_raises_on_cuda(tmp_path, monkeypatch, stage):
+    """On a CUDA device a forest abort code or a host prefix that cannot
+    defer raises instead of finishing on the host engine.  The card is
+    stood in for: the forest (or the prefix) declines before any tensor
+    moves."""
+    import reveal_tpu.native as native
+
+    fastas = _write_pair(tmp_path, 20_000, seed=5)
+    monkeypatch.setattr(port_rem, "resolve_device",
+                        lambda _d: torch.device("cuda"))
+    if stage == "forest":
+        monkeypatch.setattr(devloop, "rem_device_forest", _forest_aborts)
+        match = "kernel abort code %d" % jax_devloop.ABORT_DUP_REF
+    else:
+        monkeypatch.setattr(native, "rem2_defer_native",
+                            lambda *_a, **_k: None)
+        match = "host prefix pick deferred"
+    host_align = []
+    monkeypatch.setattr(port_rem, "_align_loop",
+                        lambda *a: host_align.append(a))
+    with pytest.raises(RuntimeError, match=match) as err:
+        port_rem.align_genomes(fastas, device="cuda")
+    assert "run reveal_tpu" in str(err.value)
+    assert devloop.LAST_STATS["fallback"] in str(err.value)
+    assert not host_align
