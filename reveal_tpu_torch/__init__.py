@@ -2,15 +2,34 @@
 
 A port of ``reveal_tpu`` (JAX, XLA and Pallas) to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper (``sm_90a``).  ``reveal_tpu`` stays the
-reference: the port imports its framework-free host code (native C++ engine,
-fasta/GFA I/O, graph model, anchor replay) and re-implements only the device
-code.  This package never imports ``jax``.
+reference, but the port stands alone: it keeps its own copy of the host
+code it needs (native C++ engine, fasta/GFA I/O, graph model, anchor
+replay, the host MSA) under the same sub-package and module names, and
+imports neither ``jax`` nor anything of ``reveal_tpu``.
 
-Covered so far: pairwise ``rem --frontier`` (two fastas -> GFA), whose
-residual recursion runs on the device as the level kernel of
-``index/devloop.py`` with the repair window-resolve as a CUDA kernel
-(``csrc/window_resolve.cu``).  Entry points:
+Covered so far:
+
+* pairwise ``rem --frontier`` (two fastas -> GFA), whose residual
+  recursion runs on the device as the level kernel of ``index/devloop.py``
+  with the repair window-resolve as a CUDA kernel
+  (``csrc/window_resolve.cu``);
+* ``refine`` (GFA -> GFA with realigned bubbles), whose pair posteriors
+  (stage 1 of the consistency MSA) run on the device with the pair-HMM
+  forward and backward DP as CUDA kernels (``csrc/pairhmm_dp.cu``).
+
+Entry points:
 
 * ``reveal_tpu_torch.align.rem.align_genomes([a.fa, b.fa], device="cuda")``
+* ``reveal_tpu_torch.hmm.refine.refine_all(G, device="cuda", ...)``
 * ``python -m reveal_tpu_torch.cli rem a.fa b.fa --frontier -o out.gfa``
+* ``python -m reveal_tpu_torch.cli refine g.gfa --all -o out.gfa``
 """
+
+
+def _not_covered(what: str, item: str):
+    """The error for a path of ``reveal_tpu`` the port does not cover
+    yet; ``item`` is its entry in ROADMAP.md queue 1."""
+    return NotImplementedError(
+        "%s is not covered by reveal_tpu_torch yet (ROADMAP queue 1 "
+        "item %s); run reveal_tpu for it" % (what, item)
+    )

@@ -1,13 +1,18 @@
-"""Routing of pairwise ``rem --frontier`` on a torch device.
+"""Pairwise ``rem`` on a torch device, with the host engine beside it.
 
-Counterpart of ``reveal_tpu/align/rem.py``: ``align_genomes`` (:1174) and
-``_rem_device_hybrid`` (:215).  The host half is imported from
-``reveal_tpu`` unchanged: fasta reading, the native ESA, the native host
-prefix ``rem2_defer_native``, the anchor replay ``_rem2_replay`` and the
-serial host engine ``_align_loop``.  Only the deferred forest runs here,
-on the device given (``index/devloop.rem_device_forest``).
+Counterpart of ``reveal_tpu/align/rem.py``.  The host half is this
+package's own copy of the reference's host code: fasta reading
+(``read_fasta_into``), the native whole-recursion engine
+(``_rem2_native_loop``), the anchor replay (``_rem2_replay``,
+``_rem2_replay_native``) and the serial host engine (``_align_loop`` with
+``graphalign`` and ``_enum_pick``).  ``align_genomes`` and
+``_rem_device_hybrid`` (reference :1174 and :215) route pairwise
+``rem --frontier``: the native host prefix ``rem2_defer_native`` runs the
+big segments, the deferred forest runs on the device given
+(``index/devloop.rem_device_forest``).  ``align_genomes_host`` runs the
+serial host engine alone; it is the reference the device path is held to.
 
-Inputs the slice does not cover raise ``NotImplementedError``; they are
+Inputs the port does not cover raise ``NotImplementedError``; they are
 never routed to another engine.  When the forest declines an input (a
 kernel abort code such as ``ABORT_DUP_REF``, which needs the host's
 dict-aliasing, capacity retries that run out, the level cap, a text of
@@ -23,24 +28,25 @@ from __future__ import annotations
 import logging
 import os
 import time
+import uuid
 from typing import List
 
 import numpy as np
 
-from reveal_tpu.align.graphops import IntervalIndex
-from reveal_tpu.align.picker import PickerConfig
-from reveal_tpu.align.rem import (
-    _align_loop,
-    _pairwise_fast_eligible,
-    _rem2_replay,
-    read_fasta_into,
-)
-from reveal_tpu.core.textstore import TextStore
-from reveal_tpu.graph.pangraph import PanGraph
-from reveal_tpu.index.esa_index import ESAIndex
-
+from .. import _not_covered
+from ..core.io_fasta import fasta_reader
+from ..core.textstore import TextStore
 from ..core.torchconfig import resolve_device
+from ..graph.pangraph import PanGraph
 from ..index import devloop
+from ..index.esa_index import ESAIndex
+from .graphops import (
+    IntervalIndex,
+    breaknode,
+    mergenodes,
+    segmentgraph,
+)
+from .picker import MumPicker, PickerConfig
 
 log = logging.getLogger(__name__)
 
@@ -49,11 +55,589 @@ log = logging.getLogger(__name__)
 DEFER_MAX = 16
 
 
-def _not_covered(what: str, item: str):
-    return NotImplementedError(
-        "%s is not covered by reveal_tpu_torch yet (ROADMAP queue 1 "
-        "item %s); run reveal_tpu for it" % (what, item)
+def graphalign(G: PanGraph, t: IntervalIndex, idx: ESAIndex, mum):
+    """Port of rem.graphalign (rem.py:318-377)."""
+    l, n, spd = mum
+    nodes = idx.nodes
+    mns = []
+    sp = [p for gid, p in spd]
+    matching = set()
+    for pos in sp:
+        matching.add((pos, pos + l))
+        old = t.lookup(pos)
+        assert old[1] - old[0] >= l
+        mn, other = breaknode(G, t, old, pos, l)
+        mns.append(mn)
+        nodes.discard(old)
+        for node in other:
+            nodes.add(node)
+
+    mn = mergenodes(G, mns)
+    msamples = set(G.nodes[mn]["offsets"].keys())
+
+    leading, trailing, rest = segmentgraph(G, mn, nodes)
+
+    newleftnode = mn
+    newrightnode = mn
+    for intv in leading:
+        if not set(G.nodes[intv]["offsets"].keys()) <= msamples:
+            newrightnode = idx.right_node
+            break
+    for intv in trailing:
+        if not set(G.nodes[intv]["offsets"].keys()) <= msamples:
+            newleftnode = idx.left_node
+            break
+
+    return leading, trailing, matching, rest, mn, newleftnode, newrightnode
+
+
+def _enum_pick(picker: MumPicker, idx: ESAIndex, cfg: PickerConfig):
+    """Enumerate + pick for one segment: the read-only half of the LIFO
+    body (reveal.c:809-837 enumeration + the mumpicker callback).  Safe
+    to run concurrently for disjoint segments: only reads the shared
+    T/SA/LCP/SO arrays and stable graph boundary nodes."""
+    mums = None
+    pick = None
+    if len(idx.skipmums) == 0:
+        precomputed = False
+        if idx.main.nsamples > 2:
+            if picker.fastmap is not None:
+                arrs = idx.getmultimums_arrays(
+                    minlength=cfg.minlength, minn=cfg.minn
+                )
+                if arrs is not None:
+                    pick = picker.pick_multi(
+                        *arrs, idx, minlength=cfg.minlength
+                    )
+                    if pick is None:  # defer to the generic path
+                        from ..index.mums import tuples_from_arrays
+
+                        mums = tuples_from_arrays(*arrs, idx.main.SO)
+            if pick is None and mums is None:
+                mums = idx.getmultimums(
+                    minlength=cfg.minlength, minn=cfg.minn
+                )
+        else:
+            if picker.fastmap is not None:
+                arrs = getattr(idx, "_premums", None)
+                if arrs is None:
+                    arrs = idx.getmums_rem_arrays(cfg.minlength)
+                if arrs is not None:
+                    pick = picker.pick_pairwise(
+                        *arrs, idx, minlength=cfg.minlength
+                    )
+                    if pick is None:  # defer to the generic path
+                        ls, aas, bbs = arrs
+                        mums = [
+                            (li, 2, ((0, ai), (1, bi)))
+                            for li, ai, bi in zip(
+                                ls.tolist(), aas.tolist(), bbs.tolist()
+                            )
+                        ]
+            if pick is None and mums is None:
+                mums = idx.getmums_rem(cfg.minlength)
+    else:
+        precomputed = True
+        mums = idx.skipmums
+
+    if pick is None:
+        pick = picker(
+            mums, idx, precomputed=precomputed, minlength=cfg.minlength
+        )
+    return pick
+
+
+def _pairwise_fast_eligible(
+    G: PanGraph, root: ESAIndex, cfg: PickerConfig
+) -> bool:
+    """Shared eligibility for the whole-recursion fast paths (native
+    rem2 loop and the device loop): pairwise fasta roots, default
+    largest/sumofpairs picking, no seeding/size gates."""
+    main = root.main
+    if (
+        getattr(G, "multi", False)
+        or main.nsamples != 2
+        or os.environ.get("REVEAL_TPU_DISABLE_FASTPICK")
+        or cfg.splitchain != "largest"
+        or cfg.gcmodel != "sumofpairs"
+        or not float(cfg.wscore).is_integer()
+        or cfg.seedsize
+        or cfg.maxdepth is not None
+        or cfg.maxsize is not None
+    ):
+        return False
+    nsep0 = int(main.nsep[0])
+    n = int(root.n)
+    # fasta pairwise roots only: one whole sequence per sample
+    if root.nodes != {(0, nsep0), (nsep0 + 1, n - 1)}:
+        return False
+    pid = G.graph.get("path2id")
+    if pid is None or sorted(pid.values()) != [0, 1]:
+        return False
+    return True
+
+
+def _rem2_native_loop(
+    G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: PickerConfig
+):
+    """Whole-recursion native fast path for the pairwise fasta case.
+
+    The complete LIFO recursion (enumerate/pick/split) runs in ONE
+    native call (rem2_loop, native/esa.cpp) — the picker's boundary
+    offsets are pure anchor arithmetic in this case, so no graph state
+    is needed mid-recursion.  The returned anchor records are then
+    replayed through breaknode/mergenodes in pop order, reproducing the
+    per-step engine's graph mutation sequence byte-for-byte while
+    skipping its segmentgraph/BFS bookkeeping entirely (the recursion
+    already happened).  Returns the step count, or None when the case
+    is not eligible / the native pick deferred (caller runs the
+    per-step loop; T/SAi are restored from snapshots first).
+    """
+    main = root.main
+    if not _pairwise_fast_eligible(G, root, cfg):
+        return None
+    nsep0 = int(main.nsep[0])
+    try:
+        from ..native import rem2_loop_native
+    except Exception:
+        return None
+    T = main.T
+    SAi = main.SAi
+    t_snap = T.copy()
+    sai_snap = SAi.copy()
+    anchors = rem2_loop_native(
+        T,
+        root.SA,
+        root.LCP,
+        SAi,
+        nsep0,
+        cfg.minlength,
+        cfg.trim,
+        cfg.maxmums,
+        int(cfg.wscore),
+        float(cfg.wpen),
+        cfg.pcutoff,
     )
+    if anchors is None:
+        T[:] = t_snap
+        SAi[:] = sai_snap
+        return None
+    _rem2_replay(G, anchors)
+    log.debug(
+        "rem2 native loop: %d anchors, graph replayed", len(anchors)
+    )
+    return len(anchors)
+
+
+def _rem2_replay_native(G: PanGraph, anchors):
+    """C-simulated graph replay (native.replay_pairwise_native): the
+    exact brk/brk/merge operation sequence of _rem2_replay runs in C
+    over interval nodes with order-preserving adjacency, and the
+    PanGraph dicts are bulk-rebuilt from the returned flat arrays —
+    node/edge dict insertion order is operation-for-operation
+    identical, so the GFA stays byte-identical (~5 ms vs ~230 ms of
+    Python dict micro-ops on 2a2b).  Returns False when ineligible
+    (caller runs the Python replay)."""
+    try:
+        from ..native import replay_pairwise_native
+    except Exception:
+        return False
+
+    # serialize the initial graph: markers (string nodes) get unique
+    # negative sentinels; interval nodes must be the plain pairwise
+    # shape ({0: off} / {1: off} offsets, '+'/'+' edges, paths <= {0,1})
+    keys = list(G.nodes)
+    kidx = {k: i for i, k in enumerate(keys)}
+    N = len(keys)
+    import numpy as _np
+
+    ns0 = _np.empty(N, _np.int64)
+    ne0 = _np.empty(N, _np.int64)
+    o0 = _np.zeros(N, _np.int64)
+    o1 = _np.zeros(N, _np.int64)
+    nf = _np.zeros(N, _np.uint8)
+    nmark = 0
+    for i, k in enumerate(keys):
+        if isinstance(k, tuple):
+            att = G.nodes[k]
+            offs = att.get("offsets")
+            if offs is None or not set(offs) <= {0, 1}:
+                return False
+            ns0[i], ne0[i] = k
+            f = 0
+            if 0 in offs:
+                f |= 1
+                o0[i] = offs[0]
+            if 1 in offs:
+                f |= 2
+                o1[i] = offs[1]
+            if att.get("aligned", 0):
+                f |= 4
+            nf[i] = f
+        elif isinstance(k, str):
+            nmark += 1
+            ns0[i] = ne0[i] = -nmark
+        else:
+            return False
+
+    sc = _np.empty(N, _np.int64)
+    pc = _np.empty(N, _np.int64)
+    sn_, sm, pn_ = [], [], []
+    for i, k in enumerate(keys):
+        su = G.succ[k]
+        sc[i] = len(su)
+        for v, d in su.items():
+            if d.get("ofrom") != "+" or d.get("oto") != "+":
+                return False
+            pth = d["paths"]
+            if not pth <= {0, 1}:
+                return False
+            sn_.append(kidx[v])
+            sm.append((1 if 0 in pth else 0) | (2 if 1 in pth else 0))
+        pr = G.pred[k]
+        pc[i] = len(pr)
+        for u in pr:
+            pn_.append(kidx[u])
+
+    out = replay_pairwise_native(
+        anchors,
+        (ns0, ne0, o0, o1, nf),
+        (sc, _np.asarray(sn_, _np.int64), _np.asarray(sm, _np.uint8)),
+        (pc, _np.asarray(pn_, _np.int64)),
+    )
+    if out is None:
+        return False
+    (rns, rne, roff0, roff1, rflags, rsc, rpc,
+     rsn, rse, rpn, rpe, emask) = out
+
+    sentinel2key = {}
+    j = 0
+    for k in keys:
+        if isinstance(k, str):
+            j += 1
+            sentinel2key[-j] = k
+
+    rns_l = rns.tolist()
+    rne_l = rne.tolist()
+    ro0_l = roff0.tolist()
+    ro1_l = roff1.tolist()
+    rf_l = rflags.tolist()
+    names = []
+    nodes = {}
+    for i, s in enumerate(rns_l):
+        if s < 0:
+            k = sentinel2key[s]
+            att = G.nodes[k]
+        else:
+            k = (s, rne_l[i])
+            f = rf_l[i]
+            if f & 3 == 3:
+                offs = {0: ro0_l[i], 1: ro1_l[i]}
+            elif f & 1:
+                offs = {0: ro0_l[i]}
+            elif f & 2:
+                offs = {1: ro1_l[i]}
+            else:
+                offs = {}
+            att = {"offsets": offs, "aligned": (f >> 2) & 1}
+        names.append(k)
+        nodes[k] = att
+
+    # shared edge-attribute dicts keyed by edge id (succ and pred views
+    # of one edge share the same dict, as in the incremental surgery)
+    edges = [None] * len(emask)
+    em_l = emask.tolist()
+    rsc_l = rsc.tolist()
+    rpc_l = rpc.tolist()
+    rsn_l = rsn.tolist()
+    rse_l = rse.tolist()
+    rpn_l = rpn.tolist()
+    rpe_l = rpe.tolist()
+
+    succ = {}
+    pred = {}
+    si = pi = 0
+    for i, k in enumerate(names):
+        c = rsc_l[i]
+        d = {}
+        for j in range(si, si + c):
+            eid = rse_l[j]
+            e = edges[eid]
+            if e is None:
+                m = em_l[eid]
+                e = {
+                    "paths": (
+                        {0, 1} if m == 3 else {0} if m == 1
+                        else {1} if m == 2 else set()
+                    ),
+                    "ofrom": "+",
+                    "oto": "+",
+                }
+                edges[eid] = e
+            d[names[rsn_l[j]]] = e
+        succ[k] = d
+        si += c
+        c = rpc_l[i]
+        d = {}
+        for j in range(pi, pi + c):
+            eid = rpe_l[j]
+            e = edges[eid]
+            if e is None:
+                m = em_l[eid]
+                e = {
+                    "paths": (
+                        {0, 1} if m == 3 else {0} if m == 1
+                        else {1} if m == 2 else set()
+                    ),
+                    "ofrom": "+",
+                    "oto": "+",
+                }
+                edges[eid] = e
+            d[names[rpn_l[j]]] = e
+        pred[k] = d
+        pi += c
+
+    G.nodes = nodes
+    G.succ = succ
+    G.pred = pred
+    return True
+
+
+def _rem2_replay(G: PanGraph, anchors):
+    """Graph surgery replay for the native-loop anchors: per record, the
+    exact mutation sequence of breaknode(A) + breaknode(B) + mergenodes
+    (graphops.py:83-207), inlined for the fasta pairwise case (all
+    edges '+'/'+', so the negstrand branches vanish) and without the
+    IntervalIndex bookkeeping (the recursion already happened; nothing
+    downstream reads it).  Node/edge dict insertion order is preserved
+    operation for operation — the output graph is byte-identical to the
+    per-step engine's, GFA topological numbering included.
+
+    The whole replay runs in C when eligible (_rem2_replay_native);
+    this Python loop is the reference implementation and fallback."""
+    if _rem2_replay_native(G, anchors):
+        return
+    nodes = G.nodes
+    succ = G.succ
+    pred = G.pred
+
+    def brk(node, pos, l):
+        att = nodes[node]
+        mn = (pos, pos + l)
+        if mn == node:
+            return node
+        offs = att["offsets"]
+        in_items = list(pred[node].items())
+        out_items = list(succ[node].items())
+        if in_items or out_items:
+            pospaths = set()
+            for _, d in in_items:
+                pospaths |= d["paths"]
+            for _, d in out_items:
+                pospaths |= d["paths"]
+        else:
+            pospaths = set(offs.keys())
+
+        # add mn (aligned set by the merge below, 0 until then)
+        nodes[mn] = {
+            "offsets": {s: o + (pos - node[0]) for s, o in offs.items()},
+            "aligned": 0,
+        }
+        succ[mn] = {}
+        pred[mn] = {}
+
+        if node[0] != pos:
+            pn = (node[0], pos)
+            nodes[pn] = {"offsets": dict(offs), "aligned": 0}
+            succ[pn] = {}
+            pred[pn] = {}
+            d = {"paths": set(pospaths), "ofrom": "+", "oto": "+"}
+            succ[pn][mn] = d
+            pred[mn][pn] = d
+        else:
+            pn = mn
+        if node[1] != pos + l:
+            sn = (pos + l, node[1])
+            nodes[sn] = {
+                "offsets": {
+                    s: o + (pos + l - node[0]) for s, o in offs.items()
+                },
+                "aligned": 0,
+            }
+            succ[sn] = {}
+            pred[sn] = {}
+            d = {"paths": set(pospaths), "ofrom": "+", "oto": "+"}
+            succ[mn][sn] = d
+            pred[sn][mn] = d
+        else:
+            sn = mn
+
+        # remove the original node, reattach its edges (all '+'/'+')
+        for to in succ[node]:
+            del pred[to][node]
+        for fr in pred[node]:
+            del succ[fr][node]
+        del succ[node]
+        del pred[node]
+        del nodes[node]
+        for fro, d in in_items:
+            nd = dict(d)
+            succ[fro][pn] = nd
+            pred[pn][fro] = nd
+        for to, d in out_items:
+            nd = dict(d)
+            succ[sn][to] = nd
+            pred[to][sn] = nd
+        return mn
+
+    for ma, mb, l, a_beg, a_end, b_beg, b_end in anchors.tolist():
+        mn_a = brk((a_beg, a_end), ma, l)
+        mn_b = brk((b_beg, b_end), mb, l)
+        # mergenodes([mn_a, mn_b]) (graphops.py:161-207, DiGraph branch)
+        da = nodes[mn_a]
+        newoffsets = dict(da["offsets"])
+        newoffsets.update(nodes[mn_b]["offsets"])
+        da["offsets"] = newoffsets
+        da["aligned"] = 1
+        sa_ = succ[mn_a]
+        pa_ = pred[mn_a]
+        for u, d in pred[mn_b].items():
+            if u in pa_:
+                pa_[u]["paths"] |= d["paths"]
+            else:
+                nd = dict(d)
+                succ[u][mn_a] = nd
+                pa_[u] = nd
+            del succ[u][mn_b]
+        for v, d in succ[mn_b].items():
+            if v in sa_:
+                sa_[v]["paths"] |= d["paths"]
+            else:
+                nd = dict(d)
+                sa_[v] = nd
+                pred[v][mn_a] = nd
+            del pred[v][mn_b]
+        del succ[mn_b]
+        del pred[mn_b]
+        del nodes[mn_b]
+
+
+def _align_loop(
+    G: PanGraph,
+    t: IntervalIndex,
+    root: ESAIndex,
+    cfg: PickerConfig,
+    anchor_log=None,
+):
+    """LIFO worklist replicating aligner()'s threads=0 order.
+
+    ``anchor_log`` (align/anchorlog.py) enables checkpoint/resume: the
+    deterministic pop order means replaying the logged picks — graph
+    surgery + SA split only, no enumeration, no pick DP — rebuilds the
+    exact state, after which live picking continues and keeps logging.
+    """
+    if anchor_log is None:
+        steps = _rem2_native_loop(G, t, root, cfg)
+        if steps is not None:
+            return steps
+    picker = MumPicker(G, t, cfg)
+    if not os.environ.get("REVEAL_TPU_DISABLE_FASTPICK"):
+        picker.set_fastmap(root.nodes)
+    replay = anchor_log.replay if anchor_log is not None else []
+    queue = [root]
+    steps = 0
+    popcount = 0  # one log record per popped segment, incl. stops
+    while queue:
+        idx = queue.pop()  # LIFO (reveal.c:21-27)
+        if popcount < len(replay):
+            replaying = True
+            pick = replay[popcount]
+        else:
+            replaying = False
+            pick = _enum_pick(picker, idx, cfg)
+            if anchor_log is not None:
+                anchor_log.append(pick)
+        popcount += 1
+        if not pick:
+            continue
+        splitmum, skipleft, skipright = pick
+
+        l, n, spd = splitmum
+        result = graphalign(G, t, idx, splitmum)
+        leading, trailing, matching, rest, merged, newleft, newright = result
+
+        sp_positions = [p for gid, p in spd]
+        lead_idx, trail_idx, par_idx = idx.split_segments(
+            leading,
+            trailing,
+            matching,
+            rest,
+            sp_positions,
+            l,
+            newleft,
+            newright,
+            skipleft=skipleft,
+            skipright=skipright,
+            enum_minl=(
+                None
+                if replaying
+                else cfg.minlength
+                if picker.fastmap is not None
+                and idx.main.nsamples == 2
+                else None
+            ),
+        )
+        steps += 1
+        # push order parallel, leading, trailing (reveal.c:1295-1324)
+        if par_idx is not None:
+            queue.append(par_idx)
+        if lead_idx is not None:
+            queue.append(lead_idx)
+        if trail_idx is not None:
+            queue.append(trail_idx)
+    log.debug("alignment finished after %d anchor steps", steps)
+    return steps
+
+
+def read_fasta_into(
+    fasta: str,
+    ts: TextStore,
+    t: IntervalIndex,
+    G: PanGraph,
+    root_nodes: set,
+    contigs: bool = True,
+    toupper: bool = True,
+):
+    """Port of utils.read_fasta (utils.py:304-375): per-sequence start/end
+    endpoint markers, per-path registry entries."""
+    if contigs:
+        ts.add_sample(os.path.basename(fasta))
+    for name, seq in fasta_reader(fasta, toupper=toupper):
+        if not contigs:
+            ts.add_sample(name)
+        name = name.replace(":", "").replace(";", "")
+        if name in G.graph["paths"]:
+            raise ValueError(
+                "duplicate sequence name in graph: %r" % name
+            )
+        sid = len(G.graph["paths"])
+        G.graph["paths"].append(name)
+        G.graph["path2id"][name] = sid
+        G.graph["id2path"][sid] = name
+        G.graph["id2end"][sid] = len(seq)
+
+        iv = ts.add_sequence(seq)
+        t.add(iv)
+        startnode = uuid.uuid4().hex
+        endnode = uuid.uuid4().hex
+        G.add_node(startnode, offsets={sid: 0}, endpoint=True)
+        G.graph["startnodes"].append(startnode)
+        G.add_node(iv, offsets={sid: 0}, aligned=0)
+        G.add_node(endnode, offsets={sid: len(seq)}, endpoint=True)
+        G.graph["endnodes"].append(endnode)
+        G.add_edge(startnode, iv, paths={sid}, ofrom="+", oto="+")
+        G.add_edge(iv, endnode, paths={sid}, ofrom="+", oto="+")
+        root_nodes.add(iv)
 
 
 def _declined(G, t, root, cfg, T, SAi, t_snap, sai_snap, device, why):
@@ -84,11 +668,12 @@ def _rem_device_hybrid(
     spliced back at their placeholders, so the replayed anchor stream
     (and the GFA) is byte-identical to the serial engine's.  Returns
     the anchor count."""
-    from reveal_tpu.native import get_lib, rem2_defer_native
+    from ..native import get_lib, rem2_defer_native
 
     if get_lib() is None:
-        raise RuntimeError("the native host engine (reveal_tpu/native) "
-                           "failed to build or load")
+        raise RuntimeError("the native host engine "
+                           "(reveal_tpu_torch/native) failed to build or "
+                           "load")
     main = root.main
     nsep0 = int(main.nsep[0])
     defer_max = DEFER_MAX
@@ -195,4 +780,25 @@ def align_genomes(
     if not float(cfg.wpen).is_integer() or cfg.minlength < 1:
         raise _not_covered("a fractional --wpen or minlength < 1", "8")
     _rem_device_hybrid(G, t, idx, cfg, dev)
+    return G, idx
+
+
+def align_genomes_host(inputfiles: List[str], **cfgkw):
+    """Pairwise alignment of fasta files by the serial host engine
+    alone (``_align_loop``: the native whole-recursion loop where
+    eligible, else the per-step LIFO loop) -> (G, idx).  The reference
+    the device path is held to; not an entry point of the CLI."""
+    ts = TextStore()
+    t = IntervalIndex()
+    G = PanGraph()
+    root_nodes = set()
+    for sample in inputfiles:
+        read_fasta_into(sample, ts, t, G, root_nodes)
+    if ts.nsamples <= 1:
+        raise ValueError(
+            "Specify at least 2 targets to construct an alignment."
+        )
+    idx = ESAIndex.construct(ts, backend="native")
+    idx.nodes = root_nodes
+    _align_loop(G, t, idx, PickerConfig(**cfgkw))
     return G, idx

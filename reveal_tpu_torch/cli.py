@@ -2,11 +2,18 @@
 
     python -m reveal_tpu_torch.cli rem A.fa B.fa [--frontier] \\
         [--device cuda|cpu] [-m MINLENGTH] [-o out.gfa]
+    python -m reveal_tpu_torch.cli refine G.gfa --all|--simple|--complex \\
+        [--device cuda|cpu] [-o out.gfa] [refine options]
 
 Pairwise ``rem --frontier`` (the flag is accepted and always on): the
 residual recursion runs on ``--device`` (default ``cuda``; without a
-card that is an error, never a quiet switch to the CPU).  The GFA and the identity log line are those of
-``python -m reveal_tpu.cli rem``.
+card that is an error, never a quiet switch to the CPU).  The GFA and
+the identity log line are those of ``python -m reveal_tpu.cli rem``.
+
+``refine`` (alias ``realign``) realigns bubbles with the pair-HMM
+consistency MSA; the pair posteriors of all bubbles run on ``--device``.
+Its options and its output are those of ``python -m reveal_tpu.cli
+refine``.
 """
 
 from __future__ import annotations
@@ -20,9 +27,8 @@ log = logging.getLogger(__name__)
 
 
 def rem_cmd(args):
-    from reveal_tpu.core.io_gfa import seq2node, write_gfa
-
     from .align.rem import align_genomes
+    from .core.io_gfa import seq2node, write_gfa
 
     G, idx = align_genomes(
         args.inputfiles,
@@ -64,10 +70,73 @@ def rem_cmd(args):
     return out
 
 
+def refine_cmd(args):
+    from .align.graphops import prune_nodes
+    from .core.io_gfa import read_gfa, write_gfa
+    from .graph.simplify import contract
+    from .hmm.refine import refine_all
+
+    G = read_gfa(args.graph[0])
+    if not (args.all or args.complex or args.simple):
+        log.error("Specify one of --all --simple --complex.")
+        sys.exit(1)
+    if getattr(args, "logadd_compat", False):
+        from .hmm.msa import set_logadd_compat
+
+        set_logadd_compat(True)
+    ck_meta = None
+    if args.checkpoint:
+        import hashlib
+
+        with open(args.graph[0], "rb") as f:
+            ck_meta = {"gfa_sha1": hashlib.sha1(f.read()).hexdigest()}
+    G = refine_all(
+        G,
+        checkpoint=args.checkpoint,
+        checkpoint_meta=ck_meta,
+        device=args.device,
+        minlength=args.minlength,
+        minsize=args.minsize,
+        mindiff=args.mindiff,
+        maxdiff=args.maxdiff,
+        maxsize=args.maxsize,
+        maxcumsize=args.maxcumsize,
+        mincumsize=args.mincumsize,
+        complex_only=args.complex,
+        simple_only=args.simple,
+        nogaps=args.nogaps,
+        minconf=args.minconf,
+        constrans=args.constrans,
+        consgap=args.consgap,
+        nrefinements=args.nrefinements,
+        uniqueonly=args.uniqueonly,
+        nproc=args.nproc,
+        method=args.method,
+        parameters=args.parameters,
+        wpen=args.wpen,
+        wscore=args.wscore,
+    )
+    fn = (
+        args.outfile
+        if args.outfile
+        else args.graph[0]
+        .replace(".gfa.gz", ".realigned.gfa")
+        .replace(".gfa", ".realigned.gfa")
+    )
+    if not fn.endswith(".realigned.gfa") and ".gfa" not in fn:
+        fn += ".gfa"
+    prune_nodes(G)
+    order = [n for n in G.topological_sort() if not isinstance(n, str)]
+    contract(G, order)
+    out = write_gfa(G, None, outputfile=fn)
+    log.info("Refined graph written to: %s", out)
+    return out
+
+
 def build_parser():
     p = argparse.ArgumentParser(
         prog="python -m reveal_tpu_torch.cli",
-        description="reveal-tpu on PyTorch/CUDA (pairwise rem --frontier)",
+        description="reveal-tpu on PyTorch/CUDA (pairwise rem --frontier, refine)",
     )
     p.add_argument(
         "-l", "--log-level", dest="loglevel", type=int, default=20,
@@ -93,6 +162,62 @@ def build_parser():
     r.add_argument("-o", "--output", dest="output", default=None,
                    help="Output GFA (default: <a>_<b>.gfa.gz).")
     r.set_defaults(func=rem_cmd)
+
+    for name in ("refine", "realign"):
+        p2 = sub.add_parser(
+            name, help="Realign bubbles with the pair-HMM MSA."
+        )
+        p2.add_argument("graph", nargs=1)
+        p2.add_argument(
+            "--device", default="cuda",
+            help="Torch device of the pair posteriors: cuda (default) or "
+            "cpu.",
+        )
+        p2.add_argument("--all", action="store_true")
+        p2.add_argument("--complex", action="store_true")
+        p2.add_argument("--simple", action="store_true")
+        p2.add_argument("-o", "--outfile", default=None)
+        p2.add_argument("-m", "--minlength", type=int, default=20)
+        p2.add_argument("--minsize", type=int, default=None)
+        p2.add_argument("--mindiff", type=int, default=0)
+        p2.add_argument("--maxdiff", type=int, default=None)
+        p2.add_argument("--maxsize", type=int, default=10000)
+        p2.add_argument("--maxcumsize", type=int, default=None)
+        p2.add_argument("--mincumsize", type=int, default=0)
+        p2.add_argument("--nogaps", action="store_true")
+        p2.add_argument("--minconf", type=int, default=0)
+        p2.add_argument("--constrans", type=int, default=2)
+        p2.add_argument("--consgap", action="store_true", default=False)
+        p2.add_argument("--nrefinements", type=int, default=100)
+        p2.add_argument(
+            "--logadd-compat", dest="logadd_compat", action="store_true",
+            help="ProbCons' float32 LOG_ADD lookup-table arithmetic; not "
+                 "ported, raises.",
+        )
+        p2.add_argument("--uniqueonly", action="store_true")
+        p2.add_argument("--nproc", type=int, default=0,
+                        help="Worker processes for the per-bubble MSA "
+                             "phase; default serial.")
+        p2.add_argument("--method", default="reveal_probcons",
+                        choices=["reveal_probcons", "reveal_rem", "muscle",
+                                 "probcons", "msaprobs", "pecan"],
+                        help="Bubble realignment method; only the built-in "
+                             "pair-HMM MSA (reveal_probcons) is ported, "
+                             "the others raise.")
+        p2.add_argument("--params", dest="parameters", default="",
+                        help="Extra parameters for external MSA tools.")
+        p2.add_argument("--checkpoint", default=None, metavar="FILE",
+                        help="Per-bubble result log for checkpoint/"
+                             "resume: each bubble's realignment is "
+                             "appended as it completes; re-running with "
+                             "the same FILE skips finished bubbles "
+                             "(their pairs never join the device batch) "
+                             "and splices the stored results.")
+        p2.add_argument("--wp", dest="wpen", type=int, default=1,
+                        help="Chaining penalty weight (reveal_rem).")
+        p2.add_argument("--ws", dest="wscore", type=int, default=1,
+                        help="Chaining score weight (reveal_rem).")
+        p2.set_defaults(func=refine_cmd)
     return p
 
 

@@ -1,0 +1,798 @@
+"""Bubble refinement: realign bubble alleles with the pair-HMM MSA and
+splice the refined subgraph back into the variation graph.
+
+Counterpart of ``reveal_tpu/hmm/refine.py`` (port of reveal/refine.py):
+
+* ``refine_all``: bubble selection (simple/complex/size/diff/cumsize
+  windows, gap filter), drop-nested selection, per-bubble realignment
+  (refine.py:377-525);
+* ``refine_bubble``: extract per-path allele sequences, run the
+  consistency MSA, rebuild a column graph (refine.py:149-273);
+* ``msa_to_graph``: MSA columns -> DAG honoring per-column confidence —
+  low-confidence columns become per-sample nodes (refine.py:640-830);
+* ``replace_bubble``: splice the refined subgraph between source and sink
+  (refine.py:90-147).
+
+This is the reference's two-phase route: the pair posteriors of all
+bubbles run as a few large batches on the torch device given
+(``msa.batch_posteriors_cut``: forward and backward DP, combine, cut and
+MEA score), then every bubble's MSA runs on the host with those
+posteriors (``msa.probcons_align``).  The reference's small-workload
+routes to the native host code, its device consistency transform and its
+fused stage-1+2 chain are not part of the port: on any device every pair
+of every bubble goes through ``batch_posteriors_cut``, and a kernel,
+build or launch failure raises.  External aligners and ``reveal_rem``
+(``--method``) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import Counter
+from typing import Dict, Optional
+
+from .. import _not_covered
+from .msa import probcons_align
+from .pairhmm_dp import bucket_key
+from ..graph.bubbles import Bubble, bubbles
+from ..graph.extract import extract
+from ..graph.pangraph import PanGraph
+
+log = logging.getLogger(__name__)
+
+# stats of the most recent refine_all call: bubbles, pairs, posterior
+# cells, the pairs per padded DP shape, a digest of every refined bubble's subgraph in splice order, and
+# the seconds of its stages
+LAST_STATS = {}
+
+# (run_closure, jobs) installed right before a fork-based refine pool
+# spawns; workers inherit it copy-on-write and receive only job indices
+_mp_state = None
+
+
+def _subgraph_digest(ng: PanGraph) -> str:
+    """Digest of a refined bubble's column graph (node sequences, path
+    offsets, edges with their paths): equal digests mean equal MSAs as
+    far as the graph can tell."""
+    import hashlib
+
+    nodes = sorted(
+        (n, d["seq"], sorted(d["offsets"].items()))
+        for n, d in ng.nodes.items()
+    )
+    edges = sorted((u, v, sorted(d["paths"])) for u, v, d in
+                   ng.edges(data=True))
+    return hashlib.sha1(repr((nodes, edges)).encode()).hexdigest()
+
+
+def _mp_run_job(i):
+    run, jobs = _mp_state
+    return run(jobs[i])
+
+
+def msa_to_graph(
+    aobjs,
+    idoffset: int = 0,
+    minconf: int = 0,
+    constrans: int = 2,
+    consgap: bool = True,
+    nrefinements: int = 100,
+    precomputed=None,
+    precomputed_scores=None,
+    method: str = "reveal_probcons",
+    parameters: str = "",
+) -> Optional[PanGraph]:
+    """MSA + column-graph construction (refine.msa2graph) with the
+    built-in pair-HMM consistency MSA (reveal_probcons)."""
+    if method != "reveal_probcons":
+        raise _not_covered(
+            "--method %s (external aligners, reveal_rem)" % method, "3"
+        )
+    del parameters  # external aligners only
+    nn = idoffset
+    ng = PanGraph()
+    for name, seq in aobjs:
+        sid = len(ng.graph["paths"])
+        ng.graph["path2id"][name] = sid
+        ng.graph["id2path"][sid] = name
+        ng.graph["id2end"][sid] = len(seq)
+        ng.graph["paths"].append(name)
+
+    aln, confidence = probcons_align(
+        aobjs,
+        consistency=constrans,
+        refinement=nrefinements,
+        consgap=consgap,
+        precomputed=precomputed,
+        precomputed_scores=precomputed_scores,
+    )
+    seqs = [""] * len(aobjs)
+    for name, seq in aln:
+        seqs[ng.graph["path2id"][name]] = seq
+
+    build_column_graph(ng, seqs, confidence, minconf=minconf, idoffset=nn)
+    return ng
+
+
+def build_column_graph(ng, seqs, confidence, minconf=0, idoffset=0):
+    """MSA columns -> DAG (shared with convert's aligned-fasta input;
+    utils.aln2graph is the reference's duplicate of this logic)."""
+    nn = idoffset
+    ncols = len(seqs[0])
+    offsets = {o: -1 for o in range(len(seqs))}
+    nid = nn
+    sid2pnode: Dict[int, int] = {}
+    pbase2node = {}
+    pcol = {}
+    pp = None
+
+    for i in range(ncols):
+        col = {}
+        base2node = {}
+        sid2node = {}
+        p = confidence[i]
+
+        for j in range(len(seqs)):
+            col.setdefault(seqs[j][i], set()).add(j)
+            if seqs[j][i] != "-":
+                offsets[j] += 1
+
+        for base in col:
+            if i == 0:
+                if p >= minconf:
+                    ng.add_node(
+                        nid,
+                        seq=base,
+                        offsets={
+                            sid: offsets[sid]
+                            for sid in offsets
+                            if sid in col[base]
+                        },
+                        p=[p],
+                    )
+                    base2node[base] = nid
+                    for sid in col[base]:
+                        sid2node[sid] = nid
+                    nid += 1
+                else:  # new node per sequence
+                    for sid in col[base]:
+                        ng.add_node(
+                            nid, seq=base, offsets={sid: offsets[sid]}, p=[p]
+                        )
+                        sid2node[sid] = nid
+                        if base in base2node:
+                            base2node[base].append(nid)
+                        else:
+                            base2node[base] = [nid]
+                        nid += 1
+            else:
+                if p >= minconf and pp >= minconf:
+                    for pbase in pcol:
+                        overlap = pcol[pbase] & col[base]
+                        if len(overlap) == 0:
+                            continue
+                        elif len(overlap) == len(col[base]) == len(
+                            pcol[pbase]
+                        ):  # append to previous column's node
+                            ng.nodes[pbase2node[pbase]]["seq"] += base
+                            ng.nodes[pbase2node[pbase]]["p"].append(p)
+                            base2node[base] = pbase2node[pbase]
+                            for sid in overlap:
+                                sid2node[sid] = sid2pnode[sid]
+                        else:
+                            if base not in base2node:
+                                ng.add_node(
+                                    nid, seq=base, offsets=dict(), p=[p]
+                                )
+                                base2node[base] = nid
+                                for sid in col[base]:
+                                    sid2node[sid] = nid
+                                nid += 1
+                            for sid in overlap:
+                                ng.nodes[base2node[base]]["offsets"][sid] = (
+                                    offsets[sid]
+                                )
+                            ng.add_edge(
+                                pbase2node[pbase],
+                                base2node[base],
+                                paths=set(overlap),
+                                oto="+",
+                                ofrom="+",
+                            )
+                elif p < minconf and pp >= minconf:
+                    for sid in col[base]:
+                        ng.add_node(
+                            nid, seq=base, offsets={sid: offsets[sid]}, p=[p]
+                        )
+                        ng.add_edge(
+                            sid2pnode[sid], nid, paths={sid}, oto="+",
+                            ofrom="+",
+                        )
+                        sid2node[sid] = nid
+                        if base in base2node:
+                            base2node[base].append(nid)
+                        else:
+                            base2node[base] = [nid]
+                        nid += 1
+                elif p >= minconf and pp < minconf:
+                    ng.add_node(nid, seq=base, offsets=dict(), p=[p])
+                    for sid in col[base]:
+                        ng.nodes[nid]["offsets"][sid] = offsets[sid]
+                        if not ng.has_edge(sid2pnode[sid], nid):
+                            ng.add_edge(
+                                sid2pnode[sid],
+                                nid,
+                                paths={sid},
+                                oto="+",
+                                ofrom="+",
+                            )
+                        else:
+                            ng.edge(sid2pnode[sid], nid)["paths"].add(sid)
+                        sid2node[sid] = nid
+                        base2node[base] = nid
+                    nid += 1
+                else:  # both below minconf: extend per-sample nodes
+                    for sid in col[base]:
+                        ng.nodes[sid2pnode[sid]]["seq"] += base
+                        ng.nodes[sid2pnode[sid]]["p"].append(p)
+                    sid2node = sid2pnode
+
+        assert len(sid2node) == len(seqs)
+        sid2pnode = sid2node
+        pbase2node = base2node
+        pcol = col
+        pp = p
+
+    # remove gap placeholders (refine.py:777-806)
+    remove = []
+    for node in list(ng.nodes):
+        data = ng.nodes[node]
+        incroffset = data["seq"][0] == "-"
+        data["seq"] = data["seq"].replace("-", "")
+        if data["seq"] == "":
+            remove.append(node)
+        elif incroffset:
+            for sid in data["offsets"]:
+                data["offsets"][sid] += 1
+        data["aligned"] = 1 if len(data["offsets"]) > 1 else 0
+
+    for node in remove:
+        ine = list(ng.in_edges(node, data=True))
+        oute = list(ng.out_edges(node, data=True))
+        for in1, _, ind in ine:
+            for _, out2, outd in oute:
+                overlap = ind["paths"] & outd["paths"]
+                if len(overlap) >= 1:
+                    if ng.has_edge(in1, out2):
+                        ng.edge(in1, out2)["paths"] |= overlap
+                    else:
+                        ng.add_edge(
+                            in1, out2, paths=set(overlap), ofrom="+", oto="+"
+                        )
+    for node in remove:
+        ng.remove_node(node)
+
+    # contract unary chains with identical path sets (refine.py:808-819)
+    updated = True
+    while updated:
+        updated = False
+        for v, t in list(ng.edges()):
+            if (
+                len(ng.succ[v]) == 1
+                and len(ng.pred[t]) == 1
+                and ng.nodes[v]["offsets"].keys()
+                == ng.nodes[t]["offsets"].keys()
+            ):
+                ng.nodes[v]["seq"] += ng.nodes[t]["seq"]
+                for suc in list(ng.successors(t)):
+                    ng.add_edge(v, suc, **ng.edge(t, suc))
+                ng.remove_node(t)
+                updated = True
+                break
+
+    return ng
+
+
+def prepare_bubble_alleles(sg, bubble, paths, uniqueonly=False):
+    """Extract the per-path allele sequences for a bubble (the aobjs of
+    refine.py:158-196); None when there is nothing to refine."""
+    if len(bubble.nodes) == 3:
+        return None
+    aobjs = []
+    if uniqueonly:
+        d = {}
+        for sid in sorted(paths):
+            seq = extract(sg, sg.graph["id2path"][sid])
+            if len(seq) > 0:
+                d.setdefault(seq, []).append(str(sid))
+        if len(d) <= 1:
+            return None
+        aobjs = [(",".join(d[seq]), seq) for seq in d]
+    else:
+        for sid in sorted(paths):
+            seq = extract(sg, sg.graph["id2path"][sid])
+            if len(seq) > 0:
+                aobjs.append((str(sid), seq))
+        if len(aobjs) <= 1:
+            return None
+    return aobjs
+
+
+def refine_bubble(
+    sg: PanGraph,
+    bubble: Bubble,
+    offsets: Dict[int, int],
+    paths,
+    minconf: int = 0,
+    constrans: int = 2,
+    consgap: bool = True,
+    nrefinements: int = 100,
+    uniqueonly: bool = False,
+    aobjs=None,
+    precomputed=None,
+    precomputed_scores=None,
+    method: str = "reveal_probcons",
+    parameters: str = "",
+    minlength: int = 20,
+    wpen: float = 1,
+    wscore: float = 1,
+    **_,
+):
+    """refine.py:149-273 with the built-in MSA (reveal_probcons)."""
+    if aobjs is None:
+        aobjs = prepare_bubble_alleles(
+            sg, bubble, paths, uniqueonly=uniqueonly
+        )
+    if aobjs is None:
+        return None
+
+    ng = msa_to_graph(
+        aobjs,
+        minconf=minconf,
+        constrans=constrans,
+        consgap=consgap,
+        nrefinements=nrefinements,
+        precomputed=precomputed,
+        precomputed_scores=precomputed_scores,
+        method=method,
+        parameters=parameters,
+    )
+    if ng is None:
+        return None
+
+    # map path ids back to the original graph's id space
+    for _, _, data in ng.edges(data=True):
+        newpaths = set()
+        for p in data["paths"]:
+            for x in ng.graph["id2path"][p].split(","):
+                newpaths.add(int(x))
+        data["paths"] = newpaths
+    for node in ng.nodes:
+        data = ng.nodes[node]
+        newoffsets = {}
+        for sid in data["offsets"]:
+            for x in ng.graph["id2path"][sid].split(","):
+                newoffsets[int(x)] = data["offsets"][sid]
+        data["offsets"] = newoffsets
+
+    ng.graph["paths"] = sg.graph["paths"]
+    ng.graph["path2id"] = sg.graph["path2id"]
+    ng.graph["id2path"] = sg.graph["id2path"]
+
+    path2start = {}
+    path2end = {}
+    for node in ng.nodes:
+        data = ng.nodes[node]
+        for sid in data["offsets"]:
+            if (
+                sid not in path2start
+                or data["offsets"][sid] < path2start[sid][1]
+            ):
+                path2start[sid] = (node, data["offsets"][sid])
+            if sid not in path2end or data["offsets"][sid] > path2end[sid][1]:
+                path2end[sid] = (node, data["offsets"][sid])
+        corrected = {
+            sid: data["offsets"][sid] + offsets[sid]
+            for sid in data["offsets"]
+        }
+        data["offsets"] = corrected
+
+    return bubble, ng, path2start, path2end
+
+
+def replace_bubble(G: PanGraph, bubble, ng: PanGraph, path2start, path2end, nn):
+    """refine.py:90-147."""
+    assert nn not in G.nodes
+    for node in bubble.nodes[1:-1]:
+        G.remove_node(node)
+
+    mapping = {}
+    for node in ng.nodes:
+        mapping[node] = nn
+        nn += 1
+    for node in ng.nodes:
+        G.add_node(mapping[node], **ng.nodes[node])
+    for u, v, d in ng.edges(data=True):
+        G.add_edge(mapping[u], mapping[v], **d)
+
+    for sid in path2start:
+        startnode = mapping[path2start[sid][0]]
+        if G.has_edge(bubble.source, startnode):
+            G.edge(bubble.source, startnode)["paths"].add(sid)
+        else:
+            G.add_edge(
+                bubble.source, startnode, ofrom="+", oto="+", paths={sid}
+            )
+    for sid in path2end:
+        endnode = mapping[path2end[sid][0]]
+        if G.has_edge(endnode, bubble.sink):
+            G.edge(endnode, bubble.sink)["paths"].add(sid)
+        else:
+            G.add_edge(endnode, bubble.sink, ofrom="+", oto="+", paths={sid})
+    return G, nn
+
+
+def select_realign_bubbles(
+    G: PanGraph,
+    minsize: int = 20,
+    mindiff: int = 0,
+    maxdiff: Optional[int] = None,
+    maxsize: int = 10000,
+    maxcumsize: Optional[int] = None,
+    mincumsize: int = 0,
+    complex_only: bool = False,
+    simple_only: bool = False,
+    nogaps: bool = False,
+):
+    """Bubble selection of refine.py:377-450: filter, sort by source
+    index, keep the first of every overlapping run.  Shared by
+    refine_all and the bench's reference-workload extractor so both see
+    the identical bubble set."""
+    realignbubbles = []
+    for b in bubbles(G):
+        if complex_only and b.issimple():
+            continue
+        if simple_only and not b.issimple():
+            continue
+        if nogaps and any(
+            "N" in G.nodes[n].get("seq", "") for n in b.nodes
+        ):
+            continue
+        if b.maxsize - b.minsize < mindiff:
+            continue
+        if maxdiff is not None and b.maxsize - b.minsize > maxdiff:
+            continue
+        if b.minsize < minsize:
+            continue
+        if b.maxsize > maxsize:
+            continue
+        if maxcumsize is not None and b.cumsize > maxcumsize:
+            continue
+        if b.cumsize < mincumsize:
+            continue
+        if len(b.nodes) == 3:
+            continue
+        realignbubbles.append(b)
+
+    if not realignbubbles:
+        return []
+    realignbubbles.sort(key=lambda b: b.source_idx)
+    distinct = [realignbubbles[0]]
+    p = 0
+    for i in range(1, len(realignbubbles)):
+        if realignbubbles[i].source_idx >= realignbubbles[p].sink_idx:
+            distinct.append(realignbubbles[i])
+            p = i
+    return distinct
+
+
+def collect_bubble_aobjs(G: PanGraph, uniqueonly: bool = False, **kw):
+    """The (name, seq) allele lists of every distinct realignable
+    bubble — the exact per-bubble MSA workload refine_all dispatches.
+    Used by the bench to hand the identical problem set to the
+    reference ProbCons engine (refbench/refprobcons)."""
+    jobs = []
+    for bubble in select_realign_bubbles(G, **kw):
+        bnodes = list(set(bubble.nodes) - {bubble.source, bubble.sink})
+        sg = G.subgraph(bnodes)
+        paths = set(G.nodes[bubble.source]["offsets"]) & set(
+            G.nodes[bubble.sink]["offsets"]
+        )
+        aobjs = prepare_bubble_alleles(
+            sg, bubble, paths, uniqueonly=uniqueonly
+        )
+        if aobjs is not None:
+            jobs.append(aobjs)
+    return jobs
+
+
+def refine_all(
+    G: PanGraph,
+    minlength: int = 20,
+    minsize: Optional[int] = None,
+    mindiff: int = 0,
+    maxdiff: Optional[int] = None,
+    maxsize: int = 10000,
+    maxcumsize: Optional[int] = None,
+    mincumsize: int = 0,
+    complex_only: bool = False,
+    simple_only: bool = False,
+    nogaps: bool = False,
+    checkpoint: Optional[str] = None,
+    checkpoint_meta: Optional[dict] = None,
+    device="cuda",
+    stage1: str = "device",
+    **kwargs,
+):
+    """refine.py:377-525.  ``device`` is the torch device of stage 1
+    (the pair posteriors of all bubbles); ``stage1="native"`` computes
+    them with the native float64 host pair-HMM instead, as a reference
+    for the device route.
+
+    ``checkpoint`` logs every bubble's result as it completes
+    (hmm/refinelog.py); a resumed run skips the logged bubbles' device
+    and MSA work entirely and splices their stored results in the
+    original order — byte-identical output.  ``checkpoint_meta`` is
+    folded into the log header (callers pin the input file hash)."""
+    if minsize is None:
+        minsize = minlength
+    t_begin = time.time()
+
+    ck = None
+    if checkpoint:
+        from .refinelog import RefineLog
+
+        meta = dict(checkpoint_meta or {})
+        meta.update(
+            minlength=minlength,
+            minsize=minsize,
+            mindiff=mindiff,
+            maxdiff=maxdiff,
+            maxsize=maxsize,
+            maxcumsize=maxcumsize,
+            mincumsize=mincumsize,
+            complex_only=complex_only,
+            simple_only=simple_only,
+            nogaps=nogaps,
+        )
+        for k in (
+            "minconf",
+            "constrans",
+            "consgap",
+            "nrefinements",
+            "uniqueonly",
+            "method",
+            "parameters",
+            "wpen",
+            "wscore",
+        ):
+            if k in kwargs:
+                meta[k] = kwargs[k]
+        ck = RefineLog(checkpoint, meta)
+
+    distinct = select_realign_bubbles(
+        G,
+        minsize=minsize,
+        mindiff=mindiff,
+        maxdiff=maxdiff,
+        maxsize=maxsize,
+        maxcumsize=maxcumsize,
+        mincumsize=mincumsize,
+        complex_only=complex_only,
+        simple_only=simple_only,
+        nogaps=nogaps,
+    )
+    if not distinct:
+        log.info("No bubbles qualify for realignment.")
+        return G
+    log.info("Realigning %d bubbles", len(distinct))
+
+    nn = max((n for n in G.nodes if isinstance(n, int)), default=0) + 1
+
+    # phase 1: extract every bubble's alleles, collect all posterior pairs
+    # so the pair-HMM runs as a few large device batches instead of one
+    # round-trip per bubble.  Checkpointed bubbles skip extraction and
+    # never join the batch; their stored results fill their slot.
+    work = []
+    all_pairs = []
+    pair_slices = []
+    slots = []  # splice order: ("stored", res) | ("job", work index)
+    for bubble in distinct:
+        G.nodes[bubble.source]["aligned"] = 1
+        G.nodes[bubble.sink]["aligned"] = 1
+        if ck is not None:
+            stored = ck.done.get((bubble.source, bubble.sink))
+            if stored is not None:
+                slots.append(("stored", stored))
+                continue
+        bnodes = list(set(bubble.nodes) - {bubble.source, bubble.sink})
+        sg = G.subgraph(bnodes)
+        offsets = {
+            sid: G.nodes[bubble.source]["offsets"][sid]
+            + len(G.nodes[bubble.source]["seq"])
+            for sid in G.nodes[bubble.source]["offsets"]
+        }
+        paths = set(G.nodes[bubble.source]["offsets"]) & set(
+            G.nodes[bubble.sink]["offsets"]
+        )
+        aobjs = prepare_bubble_alleles(
+            sg, bubble, paths, uniqueonly=kwargs.get("uniqueonly", False)
+        )
+        if aobjs is None:
+            continue
+        seqs = [s for _, s in aobjs]
+        start = len(all_pairs)
+        for a in range(len(seqs)):
+            for b in range(a + 1, len(seqs)):
+                all_pairs.append((seqs[a], seqs[b]))
+        pair_slices.append((start, len(all_pairs)))
+        slots.append(("job", len(work)))
+        work.append((bubble, sg, offsets, paths, aobjs))
+
+    from .msa import batch_posteriors_cut, batch_posteriors_cut_native
+
+    method = kwargs.get("method", "reveal_probcons")
+    if method != "reveal_probcons":
+        raise _not_covered(
+            "--method %s (external aligners, reveal_rem)" % method, "3"
+        )
+    t_extract = time.time() - t_begin
+
+    # phase 1: stage 1 of every bubble's MSA in a few large batches on
+    # the device: cutoff survivors + MEA scores come back
+    # (msa.batch_posteriors_cut; SparseMatrix.h:14,54 semantics)
+    posteriors = []
+    pair_scores = []
+    t0 = time.time()
+    if all_pairs:
+        if stage1 == "native":
+            trip = batch_posteriors_cut_native(all_pairs)
+        elif stage1 == "device":
+            trip = batch_posteriors_cut(all_pairs, device=device)
+        else:
+            raise ValueError("stage1 must be 'device' or 'native'")
+        posteriors = [(p, tot) for p, tot, _ in trip]
+        pair_scores = [s_ for _, _, s_ in trip]
+        log.info(
+            "computed %d pair posteriors for %d bubbles in %.2fs",
+            len(all_pairs),
+            len(work),
+            time.time() - t0,
+        )
+    t_stage1 = time.time() - t0
+    t0 = time.time()
+
+    # phase 2: per-bubble MSA on worker threads (refine_bubble only
+    # reads its own subgraph + precomputed mats; the native MEA DP
+    # releases the GIL, so threads scale it — the reference used an mp
+    # pool here, refine.py:459-525), then the graph splice serially in
+    # input order so the result is identical to the sequential loop.
+    jobs = list(zip(work, pair_slices))
+
+    def _run(job):
+        (bubble, sg, offsets, paths, aobjs), (s, e) = job
+        t0 = time.time()
+        res = refine_bubble(
+            sg,
+            bubble,
+            offsets,
+            paths,
+            aobjs=aobjs,
+            precomputed=posteriors[s:e] if posteriors else None,
+            precomputed_scores=(
+                pair_scores[s:e] if pair_scores else None
+            ),
+            minlength=minlength,
+            **kwargs,
+        )
+        log.debug(
+            "refine bubble <%s,%s> took %.3fs",
+            bubble.source,
+            bubble.sink,
+            time.time() - t0,
+        )
+        return res
+
+    # default SERIAL: on small hosts the thread pool convoys on the GIL
+    # between the (GIL-releasing) native DP calls and makes the MSA
+    # phase ~40% slower (measured 43-50s serial vs 61-78s at nproc=4 on
+    # a 4-cpu host, same 554-bubble workload, byte-identical output);
+    # --nproc N opts in for many-core hosts where the native fraction
+    # can actually scale
+    nproc = int(kwargs.pop("nproc", 0) or 1)
+    # bubbles without precomputed stage-1/2 data compute posteriors on
+    # the device inside refine_bubble — keep those serial (one device
+    # client at a time); everything else is pure host work
+    parallel_ix = [i for i in range(len(jobs)) if posteriors]
+    results = [None] * len(jobs)
+
+    def _record(i, res):
+        results[i] = res
+        if ck is not None and res is not None:
+            b = work[i][0]
+            ck.append((b.source, b.sink), res)
+
+    par_set = set(parallel_ix)
+    for i in range(len(jobs)):
+        if i not in par_set:
+            _record(i, _run(jobs[i]))
+    if parallel_ix:
+        ran = False
+        if nproc > 1 and len(parallel_ix) > 1:
+            # PROCESS pool over fork (like the reference's mp pool,
+            # refine.py:459-525): a thread pool convoys on the GIL
+            # around the native DP calls (measured slower than serial).
+            # fork shares jobs/posteriors copy-on-write, so only the
+            # job index goes out and the (picklable) per-bubble result
+            # comes back; children run pure host numpy+native — the
+            # inherited device client is never touched.
+            import multiprocessing as _mp
+
+            try:
+                ctx = _mp.get_context("fork")
+            except ValueError:
+                ctx = None
+            if ctx is not None:
+                global _mp_state
+                _mp_state = (_run, jobs)
+                try:
+                    with ctx.Pool(processes=nproc) as pool:
+                        # imap streams results back as chunks finish, so
+                        # the checkpoint log fills during the run, not
+                        # only at pool teardown
+                        for i, res in zip(
+                            parallel_ix,
+                            pool.imap(
+                                _mp_run_job,
+                                parallel_ix,
+                                chunksize=max(
+                                    1, len(parallel_ix) // (nproc * 8)
+                                ),
+                            ),
+                        ):
+                            _record(i, res)
+                    ran = True
+                except Exception as e:
+                    log.warning(
+                        "refine process pool failed (%s); serial", e
+                    )
+                finally:
+                    _mp_state = None
+        if not ran:
+            for i in parallel_ix:
+                _record(i, _run(jobs[i]))
+
+    t_msa = time.time() - t0
+    t0 = time.time()
+    # splice in the original bubble order (stored results interleave at
+    # their positions), identical to an uninterrupted sequential run
+    for kind, payload in slots:
+        res = payload if kind == "stored" else results[payload]
+        if res is None:
+            continue
+        bubble, ng, path2start, path2end = res
+        G, nn = replace_bubble(G, bubble, ng, path2start, path2end, nn)
+    if ck is not None:
+        ck.close()
+    digests = [_subgraph_digest(r[1]) for r in results if r is not None]
+    LAST_STATS.clear()
+    LAST_STATS.update(
+        bubbles=len(work),
+        pairs=len(all_pairs),
+        cells=sum((len(a) + 1) * (len(b) + 1) for a, b in all_pairs),
+        pair_shapes=dict(Counter(bucket_key(a, b) for a, b in all_pairs)),
+        stage1=stage1,
+        refined=len(digests),
+        aligned_bubbles=sum(
+            G.nodes[w[0].source].get("aligned") == 1
+            and G.nodes[w[0].sink].get("aligned") == 1
+            for w in work
+        ),
+        digests=digests,
+        extract_seconds=t_extract,
+        stage1_seconds=t_stage1,
+        msa_seconds=t_msa,
+        splice_seconds=time.time() - t0,
+    )
+    return G

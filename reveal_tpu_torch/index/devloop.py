@@ -21,29 +21,13 @@ index could leave the array are clamped as JAX clamps them.
 from __future__ import annotations
 
 import logging
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from reveal_tpu.core.encoding import N_BYTE, SENTINEL
-from reveal_tpu.index.devloop import (  # numpy-only, loads no jax
-    _LMAX,
-    _RETRYABLE,
-    _WREP,
-    _WRV,
-    ABORT_ANCHOR_OVERFLOW,
-    ABORT_CAND_OVERFLOW,
-    ABORT_DUP_REF,
-    ABORT_LEVEL_OVERFLOW,
-    ABORT_MAXMUMS,
-    ABORT_REPAIR_OVERFLOW,
-    ABORT_SEG_OVERFLOW,
-    ABORT_SEG_WIDTH,
-    _next_pow2,
-    forest_pop_order,
-)
-
+from ..core.encoding import N_BYTE, SENTINEL
 from ..core.torchconfig import INDEX_DTYPE
 from .window_resolve import window_resolve
 
@@ -54,10 +38,77 @@ NEG = -(2**31) + 1
 BIG = 2**31 - 1
 A30 = 2**30
 
+# abort codes
+ABORT_CAND_OVERFLOW = 1     # more candidates than K in one level
+ABORT_SEG_OVERFLOW = 2      # more live children than SMAX
+ABORT_ANCHOR_OVERFLOW = 3   # anchor log full
+ABORT_DUP_REF = 4           # duplicate ref starts in one segment's chain
+ABORT_LEVEL_OVERFLOW = 5    # runaway level count
+ABORT_REPAIR_OVERFLOW = 6   # more repair candidates than CCAP in a pass
+ABORT_MAXMUMS = 7           # a segment exceeded maxmums candidates
+ABORT_CHAIN_ROUNDS = 8      # chain wavefront exceeded the round cap
+ABORT_REPAIR_WINDOW = 9     # a repair insertion point escaped the window
+ABORT_SEG_WIDTH = 10        # a segment exceeded the dense chain width CW
+
+_LMAX = 512
+_WREP = 4096    # repair window lookback (insertion point must be inside)
+_WRV = 256      # vectorized repair resolve window: the insertion-point
+                # search looks back this many slots per candidate (p90
+                # lookback is a few hundred on real genomes);
+                # window-miss movers fall back to the exact sequential
+                # resolve (full WREP window + whole-array deep scan)
+
+# capacity aborts that a re-dispatch with a doubled capacity can fix
+_RETRYABLE = {
+    ABORT_CAND_OVERFLOW: "K",
+    ABORT_SEG_OVERFLOW: "SMAX",
+    ABORT_ANCHOR_OVERFLOW: "ACAP",
+    ABORT_REPAIR_OVERFLOW: "CCAP",
+    ABORT_SEG_WIDTH: "CW",
+}
+
 # stats of the most recent rem_device_forest call, with the keys of the
 # JAX package's LAST_STATS; repair_rounds_total counts the repair rounds
 # of every dispatch, capacity retries included (= window_resolve calls)
 LAST_STATS = {}
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(1, int(math.ceil(math.log2(max(x, 2)))))
+
+
+def forest_pop_order(parents: np.ndarray, cls: np.ndarray):
+    """Per-root serial pop order for the deferred-forest kernel.
+
+    Root anchors carry parent = -2 - defer_id (see rem_device_forest);
+    returns {defer_id: index array} where each array is that subtree's
+    anchors in serial LIFO pop order (pre-order walk, trailing subtree
+    first — reveal.c:21-27,1295-1324)."""
+    A = len(parents)
+    lead = np.full(A, -1, np.int64)
+    trail = np.full(A, -1, np.int64)
+    roots = {}
+    for i in range(A):
+        p, c = int(parents[i]), int(cls[i])
+        if p < -1:
+            roots[-2 - p] = i
+        elif c == 1:
+            lead[p] = i
+        else:
+            trail[p] = i
+    out = {}
+    for did, root in roots.items():
+        order = []
+        stack = [root]
+        while stack:
+            t = stack.pop()
+            order.append(t)
+            if lead[t] >= 0:
+                stack.append(int(lead[t]))
+            if trail[t] >= 0:
+                stack.append(int(trail[t]))
+        out[did] = np.asarray(order, np.int64)
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -91,6 +91,12 @@ def load_library() -> ctypes.CDLL:
     # (lcp, npad, q, thr, out, rbv, wrv, stream) -> cudaError_t
     lib.rtt_window_resolve_i32.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp]
     lib.rtt_window_resolve_i32.restype = ci
+    # (xcls, ycls, lx, params, m_out, snap, scratch, B, L1p, L2p, stream)
+    lib.rtt_pairhmm_fwd_f32.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    lib.rtt_pairhmm_fwd_f32.restype = ci
+    # (xcls, ycls, lx, ly, params, out, scratch, B, L1p, L2p, stream)
+    lib.rtt_pairhmm_bwd_f32.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    lib.rtt_pairhmm_bwd_f32.restype = ci
     return lib
 
 
