@@ -1,16 +1,24 @@
 """Smoke run of the torch port on one CUDA card.
 
-    python3 chip_smoke.py [--seed 1] [--length 2000000]
+    python3 chip_smoke.py [--seed 1] [--length 2000000] [--only kernels]
+
+``--only kernels`` stops after phase 4 (about a minute): the build and
+the kernels against their plain versions, for work on a kernel.
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. the card's name and power limit (nvidia-smi);
 2. the build of every CUDA kernel of the port and of the native host
-   engine (side by side), timed;
+   engine (side by side), timed, with every kernel's registers and spills
+   as ``ptxas -v`` printed them;
 3. each kernel against its plain torch version on the card, at the main
    paths' shapes plus edge cases, with both times from CUDA events:
    window-resolve (exact int32 equality), the pair-HMM forward and
-   backward DP (float32, limits stated below);
+   backward DP (float32, limits stated below) under every kind of launch
+   plan (pairs sharing a warp, a chain of up to 129 warps a pair; strips
+   of 4 and 8 columns; at the two table shapes also the plan that ``refine``'s
+   large batches of those shapes launch), and the two DP kernels alone at
+   1,024 tiny pairs;
 4. the card's posteriors against the native float64-exact host pair-HMM
    on a sample of pairs from each bucket;
 5. ``rem``: two genomes from ``simulate_population(2, length, seed)``
@@ -26,7 +34,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    aligned, and the forward and backward kernels must each have been
    launched once per batch.  The same GFA then goes through the native
    float64 route for stage 1 and the number of bubbles whose refined
-   subgraph differs is printed;
+   subgraph differs is printed.  Stage 1 is then run again on the same
+   pairs phase by phase (pack and copy in, classes and reversal, forward
+   kernel, backward kernel, combine, cut with the MEA row scan, top-K and
+   copy back), which gives the kernels' time at every batch ``refine``
+   launched and their share of stage 1;
 7. ``rem`` then ``refine`` end to end on the 2 x ``length`` GFA of
    phase 5.
 
@@ -242,6 +254,12 @@ def _grid_err(got, ref, what):
     return float((got - ref).abs()[real_g].max())
 
 
+def _plan_text(plan):
+    return ("C=%d G=%d P=%d, %d blocks of %d warp"
+            % (plan["C"], plan["G"], plan["P"], plan["blocks"],
+               plan["warps_per_block"]))
+
+
 def check_pairhmm(dev):
     """Forward and backward kernels vs their plain versions on the
     card, and the posterior after the combine; times at the two main
@@ -251,101 +269,176 @@ def check_pairhmm(dev):
 
     from reveal_tpu_torch.hmm import pairhmm_dp as dp
     from reveal_tpu_torch.hmm.pairhmm import default_params
+    from reveal_tpu_torch.kernels import build
 
     params = default_params(dev)
     rng = np.random.default_rng(7)
     worst = {"fwd": 0.0, "bwd": 0.0, "post": 0.0}
     times = {}
 
-    def compare(name, pairs, time_iters=0, plain_again=True):
+    def compare(name, pairs, time_iters=0, plain_again=True, force=()):
+        """Kernels against plain under the plan ``launch_plan`` picks and
+        then under every strip width of ``force``, on the same plain
+        grids: both strip widths and every way of laying pairs over warps
+        are checked on every run, the main path's among them."""
         (batch,) = list(dp.batches(pairs, dev))
         L1p, L2p, _idxs, x, y, lx, ly = batch
         B = len(pairs)
         lim = 1e-4 * max(L1p, L2p)
+        gate = torch.clamp(4e-5 * torch.maximum(lx, ly).float(), min=2e-3)
         xcls, ycls = dp._prep(x, y)
         xr, yr = dp._prep(dp._reverse_within(x, lx),
                           dp._reverse_within(y, ly))
-        m_k, snap_k = dp.fwd_dp(xcls, ycls, lx, params)
         m_p, snap_p = dp.fwd_dp_plain(xcls, ycls, lx, params)
-        b_k = dp.bwd_dp(xr, yr, lx, ly, params)
         b_p = dp.flip_within(dp.bwd_dp_plain(xr, yr, params), lx, ly)
-        torch.cuda.synchronize()
-        e_f = max(_grid_err(m_k, m_p, name + " M"),
-                  _grid_err(snap_k, snap_p, name + " snapshot"))
-        e_b = _grid_err(b_k, b_p, name + " G0")
-        del m_k, b_k, snap_k
-        p_k, t_k = dp.posterior_batch(x, y, lx, ly, params)
+        picked = dp.launch_plan(B, L1p, L2p)
+        plans = [(name, picked)] + [
+            ("%s C%d" % (name, C), dp.make_plan(B, L1p, L2p, C))
+            for C in force]
+        checked = []
+        for label, plan in plans:
+            m_k, snap_k = dp._launch_fwd(plan, xcls, ycls, lx, params)
+            b_k = dp._launch_bwd(plan, xr, yr, lx, ly, params)
+            torch.cuda.synchronize()
+            e_f = max(_grid_err(m_k, m_p, label + " M"),
+                      _grid_err(snap_k, snap_p, label + " snapshot"))
+            e_b = _grid_err(b_k, b_p, label + " G0")
+            if plan is picked:
+                # the posterior as a user gets it; the wrappers pick the
+                # same plan again
+                del m_k, b_k, snap_k
+                p_k, t_k = dp.posterior_batch(x, y, lx, ly, params)
+            else:
+                p_k, t_k = dp.combine(m_k, snap_k, b_k, lx, ly, params)
+                del b_k, snap_k
+            for fwd, direction in ((1, "fwd"), (0, "bwd")):
+                # the wrapper's scratch is as large as the kernel takes it
+                want = build.load_library().rtt_pairhmm_scratch_words(
+                    fwd, B, L1p, plan["P"])
+                if dp.scratch_words(direction, B, L1p, plan["P"]) != want:
+                    raise AssertionError(
+                        "%s: scratch_words(%s) is not the kernel's %d"
+                        % (label, direction, want))
+            checked.append((label, plan, e_f, e_b, p_k, t_k))
         # the plain posterior: the same combine on the plain grids
         p_p, t_p = dp.combine(m_p, snap_p, b_p, lx, ly, params)
         del m_p, b_p, snap_p
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(p_k).all()):
-            raise AssertionError("%s: posterior not finite" % name)
-        per_pair = (p_k - p_p).abs().amax(dim=(1, 2))
-        gate = torch.clamp(4e-5 * torch.maximum(lx, ly).float(), min=2e-3)
-        e_p = float(per_pair.max())
-        e_t = float((t_k - t_p).abs().max())
-        print("pairhmm %-22s B=%-4d L1p=%-5d L2p=%-5d max |M| err %.3e, "
-              "|G0| err %.3e (limit %.3e), posterior err %.3e (limit "
-              "%.3e), total err %.3e"
-              % (name, B, L1p, L2p, e_f, e_b, lim, e_p, float(gate.min()),
-                 e_t))
-        if e_f > lim or e_b > lim:
-            raise AssertionError("%s: DP grids differ by %g / %g, limit %g"
-                                 % (name, e_f, e_b, lim))
-        if bool((per_pair > gate).any()):
-            raise AssertionError("%s: posteriors differ by %g" % (name, e_p))
-        worst["fwd"] = max(worst["fwd"], e_f)
-        worst["bwd"] = max(worst["bwd"], e_b)
-        worst["post"] = max(worst["post"], e_p)
-        del p_k, p_p
+        for label, plan, e_f, e_b, p_k, t_k in checked:
+            if not bool(torch.isfinite(p_k).all()):
+                raise AssertionError("%s: posterior not finite" % label)
+            per_pair = (p_k - p_p).abs().amax(dim=(1, 2))
+            e_p = float(per_pair.max())
+            e_t = float((t_k - t_p).abs().max())
+            print("pairhmm %-25s B=%-4d L1p=%-5d L2p=%-5d max |M| err %.3e, "
+                  "|G0| err %.3e (limit %.3e), posterior err %.3e (limit "
+                  "%.3e), total err %.3e; plan %s"
+                  % (label, B, L1p, L2p, e_f, e_b, lim, e_p,
+                     float(gate.min()), e_t, _plan_text(plan)))
+            if e_f > lim or e_b > lim:
+                raise AssertionError(
+                    "%s: DP grids differ by %g / %g, limit %g"
+                    % (label, e_f, e_b, lim))
+            if bool((per_pair > gate).any()):
+                raise AssertionError("%s: posteriors differ by %g"
+                                     % (label, e_p))
+            worst["fwd"] = max(worst["fwd"], e_f)
+            worst["bwd"] = max(worst["bwd"], e_b)
+            worst["post"] = max(worst["post"], e_p)
+        del checked, p_k, p_p
         if time_iters:
-            def kf():
-                dp.fwd_dp(xcls, ycls, lx, params)
-
-            def kb():
-                dp.bwd_dp(xr, yr, lx, ly, params)
-
             def pf():
                 dp.fwd_dp_plain(xcls, ycls, lx, params)
 
             def pb():
                 dp.bwd_dp_plain(xr, yr, params)
 
-            kf(), kb()
-            t = {}
+            t = {"plan": _plan_text(picked)}
             t["plain_fwd"] = _event_ms(pf, 1)
             t["plain_bwd"] = _event_ms(pb, 1)
-            t["fwd"] = (_event_ms(kf, time_iters)
-                        + _event_ms(kf, time_iters)) / 2
-            t["bwd"] = (_event_ms(kb, time_iters)
-                        + _event_ms(kb, time_iters)) / 2
+            for label, plan in plans:
+                def kf():
+                    dp._launch_fwd(plan, xcls, ycls, lx, params)
+
+                def kb():
+                    dp._launch_bwd(plan, xr, yr, lx, ly, params)
+
+                kf(), kb()
+                tf = (_event_ms(kf, time_iters)
+                      + _event_ms(kf, time_iters)) / 2
+                tb = (_event_ms(kb, time_iters)
+                      + _event_ms(kb, time_iters)) / 2
+                if plan is picked:
+                    t["fwd"], t["bwd"] = tf, tb
+                else:
+                    print("pairhmm %-25s kernels alone (x%d, x%d): fwd "
+                          "%.6f ms, bwd %.6f ms; plan %s"
+                          % (label, time_iters, time_iters, tf, tb,
+                             _plan_text(plan)))
             if plain_again:
                 t["plain_fwd"] = (t["plain_fwd"] + _event_ms(pf, 1)) / 2
                 t["plain_bwd"] = (t["plain_bwd"] + _event_ms(pb, 1)) / 2
-            cells = B * L1p * L2p
-            nbytes = (cells * 4 + B * 5 * L2p * 4 + B * (L1p + L2p)
+            # The work the function needs on this run's data: the cells
+            # within lx x ly (the rest of the grid is LOG_ZERO or, in the
+            # forward's columns beyond ly, read by nobody), 14 exp/log
+            # each; the whole grid is written once.
+            cells = int(((lx.long() + 1) * (ly.long() + 1)).sum())
+            grid = B * L1p * L2p
+            nbytes = (grid * 4 + B * 5 * L2p * 4 + B * (L1p + L2p)
                       + 8 * B + 408)
-            t["bound"] = max(nbytes / HBM_BYTES_PER_S,
-                             SFU_PER_CELL * cells / SFU_OPS_PER_S) * 1e3
-            t["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
-                             >= SFU_PER_CELL * cells / SFU_OPS_PER_S
-                             else "operations")
-            t["cells"] = cells
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = SFU_PER_CELL * cells / SFU_OPS_PER_S * 1e3
+            t["bound"] = max(by_bytes, by_ops)
+            t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+            t["bound_padded_grid"] = max(
+                by_bytes, SFU_PER_CELL * grid / SFU_OPS_PER_S * 1e3)
             times[name] = t
             print("pairhmm %-22s per call from CUDA events (plain, kernel x%d"
                   ", kernel x%d%s): fwd %.6f ms (plain %.6f), bwd "
-                  "%.6f ms (plain %.6f), bound %.6f ms by %s; %.6f Gcells/s "
-                  "forward" % (name, time_iters, time_iters,
-                               ", plain" if plain_again else "", t["fwd"],
-                               t["plain_fwd"], t["bwd"], t["plain_bwd"],
-                               t["bound"], t["bound_by"],
-                               cells / t["fwd"] / 1e6))
+                  "%.6f ms (plain %.6f); bound %.6f ms by %s (%d cells "
+                  "within lx x ly, %.1f%% of the padded grid; %d bytes; "
+                  "the bound over the whole padded grid, as before the "
+                  "redesign, is %.6f ms); %.6f Gcells/s forward over the "
+                  "cells within lx x ly"
+                  % (name, time_iters, time_iters,
+                     ", plain" if plain_again else "", t["fwd"],
+                     t["plain_fwd"], t["bwd"], t["plain_bwd"], t["bound"],
+                     t["bound_by"], cells, 100.0 * cells / grid, nbytes,
+                     t["bound_padded_grid"], cells / t["fwd"] / 1e6))
 
-    compare("B128_L512", _related_pairs(rng, 128, 300, 512), time_iters=10)
+    def time_only(name, pairs, iters):
+        """Kernel times alone, at a shape too large for its plain
+        version to be run beside it."""
+        (batch,) = list(dp.batches(pairs, dev))
+        L1p, L2p, _idxs, x, y, lx, ly = batch
+        xcls, ycls = dp._prep(x, y)
+        xr, yr = dp._prep(dp._reverse_within(x, lx),
+                          dp._reverse_within(y, ly))
+
+        def kf():
+            dp.fwd_dp(xcls, ycls, lx, params)
+
+        def kb():
+            dp.bwd_dp(xr, yr, lx, ly, params)
+
+        kf(), kb()
+        t = {"fwd": (_event_ms(kf, iters) + _event_ms(kf, iters)) / 2,
+             "bwd": (_event_ms(kb, iters) + _event_ms(kb, iters)) / 2}
+        times[name] = t
+        plan = dp.launch_plan(len(pairs), L1p, L2p)
+        print("pairhmm %-22s B=%-4d L1p=%-5d L2p=%-5d kernels alone, per "
+              "call from CUDA events (x%d, x%d): fwd %.6f ms, bwd %.6f ms; "
+              "plan %s"
+              % (name, len(pairs), L1p, L2p, iters, iters, t["fwd"],
+                 t["bwd"], _plan_text(plan)))
+
+    # the two shapes of the table; strips of 8 with one warp a panel are
+    # what refine's large batches of these shapes launch
+    compare("B128_L512", _related_pairs(rng, 128, 300, 512), time_iters=10,
+            force=[8])
     # the plain version takes seconds a call here: timed once
     compare("B32_L2048", _related_pairs(rng, 32, 1100, 2048), time_iters=5,
-            plain_again=False)
+            plain_again=False, force=[8])
     compare("len_1_and_2", [("A", "A"), ("AC", "G"), ("N", "a"),
                             ("ac", "GT"), ("A", "CG"), ("TT", "T"),
                             ("G", "G"), ("CA", "CA")])
@@ -356,15 +449,23 @@ def check_pairhmm(dev):
     nl = _related_pairs(rng, 8, 48, 64)
     nl = [(a[:10] + "NNN" + a[13:30].lower() + a[30:], b[:20]
            + b[20:35].lower() + "N" + b[36:]) for a, b in nl]
-    compare("N_and_lowercase", nl)
-    # rows wider than a block's shared memory holds: state in global
+    # two pairs a warp (picked) and one
+    compare("N_and_lowercase", nl, force=[4])
+    # few rows under wide columns: chains of 33 and 65 panels (strips of
+    # 8), 65 and 129 (strips of 4), longer than the rows that feed them
     wide = _related_pairs(rng, 2, 5000, 6000)
-    compare("wider_than_shared", [(a[:48], b) for a, b in wide])
+    compare("wider_than_shared", [(a[:48], b) for a, b in wide], force=[4])
     # the widest bucket refine --maxsize 10000 can make (L2p = 16512)
     widest = _related_pairs(rng, 2, 9000, 10000)
-    compare("widest_maxsize_10000", [(a[:48], b) for a, b in widest])
+    compare("widest_maxsize_10000", [(a[:48], b) for a, b in widest],
+            force=[4])
+    sw = [(a[:30], b) for a, b in _related_pairs(rng, 64, 1100, 2048)]
+    compare("short_x_wide_y", sw, force=[4])
+    # the many-tiny-bubbles batch of rem then refine
+    time_only("B1024_tiny", _related_pairs(rng, 1024, 2, 16), 20)
 
     rows = []
+    tiny = times["B1024_tiny"]
     main = times["B128_L512"]
     big = times["B32_L2048"]
     for key, fn_line in (("fwd", 119), ("bwd", 218)):
@@ -376,6 +477,7 @@ def check_pairhmm(dev):
             "max_abs_err": worst[key],
             "max_abs_err_posterior": worst["post"],
             "shape": "B=128 L1p=513 L2p=640",
+            "plan": main["plan"],
             "ms": main[key],
             "plain_ms": main["plain_" + key],
             "bound_ms": main["bound"],
@@ -384,6 +486,8 @@ def check_pairhmm(dev):
             "ms_B32_L1p2049_L2p2176": big[key],
             "plain_ms_B32_L1p2049_L2p2176": big["plain_" + key],
             "bound_ms_B32_L1p2049_L2p2176": big["bound"],
+            "plan_B32_L1p2049_L2p2176": big["plan"],
+            "ms_B1024_L1p17_L2p128": tiny[key],
         })
     return rows
 
@@ -520,12 +624,13 @@ def run_rem(seed, length, workdir):
 
 
 def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
-                       big=1900, npaths=6, flank=40):
+                       big=1900, npaths=6, flank=40, bubbles=None):
     """Write a GFA of a chain of bubbles between shared flank nodes,
     ``npaths`` paths, every bubble with one allele per path: each allele
     is its bubble's random ancestor with 5-7.5% substitutions (10-15%
     between two alleles) and indels of up to 12 bp.  Returns {path name:
-    sequence}."""
+    sequence}; a list given as ``bubbles`` receives the alleles of each
+    bubble in path order."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -555,6 +660,8 @@ def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
         for k in range(npaths):
             rate = 0.05 + 0.025 * rng.random()
             alleles.append(add(_diverge(rng, anc, rate).decode()))
+        if bubbles is not None:
+            bubbles.append([segs[a - 1][1] for a in alleles])
         sink_seq = bases[rng.integers(0, 4, flank)].tobytes().decode()
         sink = add(sink_seq)
         for k, a in enumerate(alleles):
@@ -649,7 +756,8 @@ def run_refine(seed, workdir):
     from reveal_tpu_torch.hmm import refine
 
     gfa = os.path.join(workdir, "bubbles.gfa")
-    want = write_bubble_chain(gfa, seed)
+    bubbles = []
+    want = write_bubble_chain(gfa, seed, bubbles=bubbles)
     out = os.path.join(workdir, "bubbles.refined.gfa")
     launches, st, _secs = _refine_on_card(gfa, out, "refine")
     if (st["bubbles"] != 72 or st["pairs"] != 72 * 15
@@ -671,7 +779,103 @@ def run_refine(seed, workdir):
           "stage 1 %.6f s on the host, whole run %.6f s"
           % (differ, len(nat["digests"]), nat["stage1_seconds"],
              time.perf_counter() - t0))
-    return launches
+    return launches, stage1_split(bubbles, st)
+
+
+def stage1_split(bubbles, st):
+    """Stage 1 of the run just made, phase by phase: the pairs ``refine``
+    formed (all allele pairs of every bubble) go through the steps of
+    ``msa.batch_posteriors_cut`` with the card synchronised between
+    them.  Prints seconds per phase, the kernels' time per batch shape
+    (launches x time) and their share of stage 1.  Returns, for every
+    batch shape, the plan the kernels ran under and their times."""
+    import collections
+
+    import torch
+
+    from reveal_tpu_torch.hmm import pairhmm
+    from reveal_tpu_torch.hmm import pairhmm_dp as dp
+
+    dev = torch.device("cuda")
+    params = pairhmm.default_params(dev)
+    pairs = [(al[a], al[b]) for al in bubbles
+             for a in range(len(al)) for b in range(a + 1, len(al))]
+    shapes = dict(collections.Counter(dp.bucket_key(a, b) for a, b in pairs))
+    if shapes != st["pair_shapes"]:
+        raise AssertionError("the bubbles' pairs have shapes %r, refine "
+                             "saw %r" % (shapes, st["pair_shapes"]))
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    launched = []
+    phases = ["pack and copy in", "classes and reversal", "forward kernel",
+              "backward kernel", "combine", "cut and MEA row scan",
+              "top-K and copy back"]
+    for turn in ("warm-up", "timed"):
+        secs = dict.fromkeys(phases, 0.0)
+        per_shape = collections.defaultdict(lambda: [0, 0.0, 0.0, 0])
+        t_all = clock()
+        it = dp.batches(pairs, dev)
+        while True:
+            t0 = clock()
+            batch = next(it, None)
+            t1 = clock()
+            secs[phases[0]] += t1 - t0
+            if batch is None:
+                break
+            L1p, L2p, idxs, x, y, lx, ly = batch
+            xcls, ycls = dp._prep(x, y)
+            xr, yr = dp._prep(dp._reverse_within(x, lx),
+                              dp._reverse_within(y, ly))
+            t2 = clock()
+            m, snap = dp.fwd_dp(xcls, ycls, lx, params)
+            t3 = clock()
+            b0 = dp.bwd_dp(xr, yr, lx, ly, params)
+            t4 = clock()
+            p, tot = dp.combine(m, snap, b0, lx, ly, params)
+            del b0
+            t5 = clock()
+            nrows = int(lx.max())
+            pairhmm.posterior_cut(p, nrows=nrows)
+            t6 = clock()
+            pairhmm.fetch_posteriors_compact(p, tot, nrows=nrows)
+            t7 = clock()
+            del p, m
+            for name, dt in zip(phases[1:], (t2 - t1, t3 - t2, t4 - t3,
+                                             t5 - t4, t6 - t5,
+                                             (t7 - t6) - (t6 - t5))):
+                secs[name] += dt
+            row = per_shape[(L1p, L2p, len(idxs))]
+            row[0] += 1
+            row[1] += t3 - t2
+            row[2] += t4 - t3
+            row[3] = dp.launch_plan(len(idxs), L1p, L2p)
+        total = clock() - t_all
+        if turn == "warm-up":
+            continue
+        kern = secs["forward kernel"] + secs["backward kernel"]
+        print("stage 1 of refine again, phase by phase (synchronised host "
+              "clock; %d pairs, %d batches): %s; sum %.6f s (refine's own "
+              "stage1_seconds: %.6f; this loop took %.6f s with the cut run "
+              "a second time on its own to time it apart)"
+              % (len(pairs), sum(r[0] for r in per_shape.values()),
+                 ", ".join("%s %.6f s" % (k, secs[k]) for k in phases),
+                 sum(secs.values()), st["stage1_seconds"], total))
+        for (L1p, L2p, nb), (n, tf, tb, plan) in sorted(per_shape.items()):
+            print("  batch %4d x %d x %d: %d launch(es) each way, forward "
+                  "%.6f ms, backward %.6f ms a launch; plan %s"
+                  % (nb, L1p, L2p, n, tf / n * 1e3, tb / n * 1e3,
+                     _plan_text(plan)))
+            launched.append({"batch": "%d x %d x %d" % (nb, L1p, L2p),
+                             "launches": n, "plan": _plan_text(plan),
+                             "fwd_ms": tf / n * 1e3, "bwd_ms": tb / n * 1e3})
+        print("  the two kernels: launches x time = %.6f s forward + %.6f s "
+              "backward = %.6f s, %.1f%% of this stage 1"
+              % (secs["forward kernel"], secs["backward kernel"], kern,
+                 100.0 * kern / sum(secs.values())))
+    return launched
 
 
 def run_rem_then_refine(rem_gfa, workdir, t_rem):
@@ -688,10 +892,30 @@ def run_rem_then_refine(rem_gfa, workdir, t_rem):
           % (t_rem, secs))
 
 
+def print_ptxas(report):
+    """Registers, spills and shared memory of every kernel, from what
+    ``ptxas -v`` said at the build."""
+    name = None
+    spill = ""
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.split("ptxas info    :")[-1].strip()
+        elif "Used" in line and name:
+            print("ptxas %s: %s; %s" % (
+                name, line.split("ptxas info    :")[-1].strip(), spill))
+            name = None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="'kernels': phases 1-4 only (the build and the "
+                         "kernels against their plain versions); prints "
+                         "no result lines")
     args = ap.parse_args(argv)
 
     import torch
@@ -734,16 +958,25 @@ def main(argv=None):
         raise RuntimeError("the native host engine failed to build")
     print("native host engine built/loaded in %.3f s (beside nvcc)"
           % native["seconds"])
+    print_ptxas(build.ptxas_report())
 
     rows = [check_window_resolve(dev)] + check_pairhmm(dev)
     check_against_native(dev, args.seed)
+    if args.only == "kernels":
+        print("chip_smoke --only kernels: phases 1-4 passed")
+        return
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".smoke_") as wd:
         rem_launches, rem_gfa, t_rem = run_rem(args.seed, args.length, wd)
-        dp_launches = run_refine(args.seed, wd)
+        dp_launches, dp_batches = run_refine(args.seed, wd)
         run_rem_then_refine(rem_gfa, wd, t_rem)
     rows[0]["launches"] = rem_launches
     rows[1]["launches"] = dp_launches["fwd"]
     rows[2]["launches"] = dp_launches["bwd"]
+    for key, row in (("fwd_ms", rows[1]), ("bwd_ms", rows[2])):
+        # what the main path launched: batch, plan and time a launch
+        row["main_path_batches"] = [
+            {"batch": b["batch"], "launches": b["launches"],
+             "plan": b["plan"], "ms": b[key]} for b in dp_batches]
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "reveal_tpu")]
     if loaded:

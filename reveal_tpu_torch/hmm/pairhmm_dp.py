@@ -16,7 +16,17 @@ written in place by the backward wrapper instead of a flip and a roll),
 and ``p = exp(min(0, M + B0 - total))`` masked to ``1..lx x 1..ly``.
 ``batch_posteriors_dp`` buckets string pairs by padded shape as
 ``batch_posteriors_pallas`` does.  The batch size of a bucket is bounded
-by memory alone: a pair is one thread block, whatever the batch.
+by memory alone.
+
+How a batch is laid over the card is ``launch_plan``'s choice, a pure
+function of (B, L1p, L2p): a lane owns a strip of C columns in registers,
+lanes run a skewed wavefront over the rows (lane t is t rows behind lane
+0), narrow rows pack several pairs into a warp, wide rows are split into
+panels of one warp each, which hand a panel's right edge on through
+tagged records in global memory.  The kernels spend the 14 exp/log a cell
+the function needs and no block barrier a row; what bounds them is the
+instruction throughput around those special functions, and at small batches
+the number of warps the plan can put on the card's 528 schedulers.
 """
 
 from __future__ import annotations
@@ -47,11 +57,6 @@ for _i, _ch in enumerate("ACGTN"):
     _CLS[ord(_ch)] = _i
     _CLS[ord(_ch.lower())] = _i
 
-# rows of at most this many columns keep their two live rows of five
-# states (40 bytes a column) in the block's shared memory (227 KB on
-# Hopper); wider rows keep them in a global scratch buffer
-SHARED_MAX_L2P = 5632
-
 # posterior cells (B * L1p * L2p) of one batch: three float32 arrays of
 # that size are live at the peak (M, the backward matrix and a temporary
 # of the cut)
@@ -61,6 +66,97 @@ MAX_BATCH = 1024
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# the launch plan
+# ---------------------------------------------------------------------------
+
+# columns a lane may own: the kernels are compiled for these strip widths.
+# The register cap: a strip of C columns keeps 5 C (forward) or 3 C
+# (backward) states, C emissions and C / 4 packed classes in registers:
+# about 100 and 128 registers a thread at 4 and 8 columns (ptxas -v).
+# Strips of 16 columns took 247 and were the fastest at no shape measured.
+PLAN_COLUMNS = (4, 8)
+MAX_COLUMNS = max(PLAN_COLUMNS)
+# static shared memory of either kernel: the 102 parameters (padded to
+# 16 bytes) and two 64-byte slots for edge records (a block is one warp)
+PLAN_SHARED_BYTES = 416 + 128
+# 32-bit words of an edge record a row (value and tag per state) and of
+# the scratch's head (the ticket), as in csrc/pairhmm_dp.cu
+EDGE_WORDS = {"fwd": 16, "bwd": 12}
+SCRATCH_HEAD = 4
+# warp schedulers of the card (132 SMs of 4): the measure of a full card
+SCHEDULERS = 132 * 4
+# steps by which a panel follows the panel to its left: the 32 lanes of
+# the wavefront and the record's way through the L2 cache
+PANEL_LAG = 64
+
+
+def _ceil_div(a, b):
+    return -(-a // b)
+
+
+def make_plan(B: int, L1p: int, L2p: int, C: int) -> dict:
+    """The layout with strips of C columns: G lanes a panel, P panels a
+    row, one warp a panel and a block."""
+    lanes = _ceil_div(L2p, C)
+    if lanes <= 32:
+        G = 1
+        while G < lanes:
+            G *= 2
+        P = 1
+    else:
+        G = 32
+        P = _ceil_div(L2p, 32 * C)
+    ppw = 32 // G
+    warps = _ceil_div(B, ppw) if P == 1 else B * P
+    return dict(C=C, G=G, P=P, pairs_per_warp=ppw, warps_per_block=1,
+                threads=32, blocks=warps, shared_bytes=PLAN_SHARED_BYTES)
+
+
+def launch_plan(B: int, L1p: int, L2p: int) -> dict:
+    """How the DP kernels lay B pairs of L1p x L2p over the card.
+
+    Returns C (columns a lane), G (lanes a panel: a power of two), P
+    (panels a row, each a warp of its own), pairs_per_warp (32 // G, above
+    1 only when P == 1), warps_per_block (1), threads, blocks and
+    shared_bytes.  Panels cover columns [p G C, (p + 1) G C): every column
+    of the row lies in exactly one lane's strip.
+
+    The rule is what ``scripts/torch_pairhmm_tune.py plans`` measured on
+    an NVIDIA H100 80GB HBM3 (700 W), forward + backward a call;
+    ``tests/test_torch_pairhmm.py`` holds it to the faster plan of every
+    shape in that table.
+
+    - A row of at most 256 columns is one panel of strips of 8, and pairs
+      share a warp (1,024 pairs of 17 x 128: 0.063 ms against 0.089 with
+      strips of 4).
+    - Strips of 4 while that leaves at most two warps a scheduler: a warp
+      that has its scheduler nearly to itself is bound by its own latency,
+      and narrow strips make more and shorter warps (128 pairs of 513 x
+      640: 1.31 ms against 1.36; 32 of 2049 x 2176: 4.90 against 5.23; 60
+      of 1025 x 1152: 2.43 against 2.61).  Beyond that strips of 8, which
+      spend fewer of a step's fixed instructions a cell (960 of 513 x
+      640: 4.58 ms against 5.72; 120 of 2049 x 2176: 8.90 against 10.27).
+    - Strips of 8 also where the chain of panels is longer than the rows
+      that feed it: the last panel then starts after the first has ended,
+      and half as many panels start sooner (2 pairs of 65 x 8320: 2.14
+      ms against 2.91; 64 of 33 x 2176: 0.71 against 0.93)."""
+    if L2p <= 32 * MAX_COLUMNS:
+        return make_plan(B, L1p, L2p, MAX_COLUMNS)
+    P4 = _ceil_div(L2p, 32 * 4)
+    fed = (P4 - 1) * PANEL_LAG <= L1p + 31
+    C = 4 if fed and B * P4 <= 2 * SCHEDULERS else 8
+    return make_plan(B, L1p, L2p, C)
+
+
+def scratch_words(direction: str, B: int, L1p: int, P: int) -> int:
+    """32-bit words of zeroed scratch a launch needs: the ticket and one
+    edge record a row for each of the P - 1 panel borders of a pair."""
+    if P <= 1:
+        return 0
+    return SCRATCH_HEAD + B * (P - 1) * L1p * EDGE_WORDS[direction]
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +213,9 @@ def _tables(params, xcls, ycls):
 def fwd_dp_plain(xcls, ycls, lx, params: PairHMMParams):
     """Forward DP of B pairs, row by row.  xcls (B, L1p), ycls (B, L2p)
     uint8 classes (dummy at index 0), lx (B,) int32.  Returns the M grid
-    (B, L1p, L2p) and the five states at row lx[b] (B, 5, L2p)."""
+    (B, L1p, L2p), LOG_ZERO in the rows beyond lx[b] (``combine`` masks
+    them; the kernel does not compute them), and the five states at row
+    lx[b] (B, 5, L2p)."""
     B, L1p = xcls.shape
     L2p = ycls.shape[1]
     dev = xcls.device
@@ -172,6 +270,8 @@ def fwd_dp_plain(xcls, ycls, lx, params: PairHMMParams):
         m_out[:, i] = m
         at_last = (lx == i)[:, None, None]
         snap = torch.where(at_last, torch.stack(state, dim=1), snap)
+    beyond = torch.arange(L1p, device=dev)[None, :] > lx[:, None]
+    m_out.masked_fill_(beyond[:, :, None], NEG)
     return m_out, snap
 
 
@@ -272,37 +372,71 @@ def _check(xcls, ycls, params, lens):
         raise ValueError("unsupported device %s" % xcls.device)
 
 
-def _scratch(B, L2p, dev):
-    """Global scratch for the two live rows when they do not fit the
-    block's shared memory, else None."""
-    if L2p <= SHARED_MAX_L2P:
-        return None
-    return torch.empty((B, 10, L2p), dtype=torch.float32, device=dev)
+def _scratch_tensor(direction, plan, B, L1p, L2p, dev):
+    """The zeroed edge records of one launch, or None for one panel."""
+    if L2p % 4:
+        raise ValueError("the DP kernels take rows of a multiple of 4 "
+                         "columns, got L2p = %d" % L2p)
+    words = scratch_words(direction, B, L1p, plan["P"])
+    return (torch.zeros(words, dtype=torch.int32, device=dev)
+            if words else None)
 
 
-def fwd_dp(xcls, ycls, lx, params: PairHMMParams):
-    """Forward DP of a batch -> (M (B, L1p, L2p), snap (B, 5, L2p))."""
-    _check(xcls, ycls, params, (("lx", lx),))
-    if xcls.device.type == "cpu":
-        return fwd_dp_plain(xcls, ycls, lx, params)
+def _plan_args(plan):
+    return plan["C"], plan["G"], plan["P"]
+
+
+def _launch_fwd(plan, xcls, ycls, lx, params):
+    """The forward kernel on CUDA tensors under ``plan``."""
     B, L1p = xcls.shape
     L2p = ycls.shape[1]
     dev = xcls.device
     m_out = torch.empty((B, L1p, L2p), dtype=torch.float32, device=dev)
     snap = torch.empty((B, 5, L2p), dtype=torch.float32, device=dev)
-    scratch = _scratch(B, L2p, dev)
     lib = build.load_library()
     with torch.cuda.device(dev):
+        scratch = _scratch_tensor("fwd", plan, B, L1p, L2p, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rtt_pairhmm_fwd_f32(
             xcls.data_ptr(), ycls.data_ptr(), lx.data_ptr(),
             params.packed.data_ptr(), m_out.data_ptr(), snap.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            B, L1p, L2p, stream,
+            B, L1p, L2p, *_plan_args(plan), stream,
         )
     build.check(err, "pairhmm_fwd")
     LAUNCHES["fwd"] += 1
     return m_out, snap
+
+
+def _launch_bwd(plan, xcls, ycls, lx, ly, params):
+    """The backward kernel on CUDA tensors under ``plan``."""
+    B, L1p = xcls.shape
+    L2p = ycls.shape[1]
+    dev = xcls.device
+    out = torch.empty((B, L1p, L2p), dtype=torch.float32, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        scratch = _scratch_tensor("bwd", plan, B, L1p, L2p, dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rtt_pairhmm_bwd_f32(
+            xcls.data_ptr(), ycls.data_ptr(), lx.data_ptr(), ly.data_ptr(),
+            params.packed.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            B, L1p, L2p, *_plan_args(plan), stream,
+        )
+    build.check(err, "pairhmm_bwd")
+    LAUNCHES["bwd"] += 1
+    return out
+
+
+def fwd_dp(xcls, ycls, lx, params: PairHMMParams):
+    """Forward DP of a batch -> (M (B, L1p, L2p), snap (B, 5, L2p)).
+    Rows of M beyond lx[b] hold LOG_ZERO."""
+    _check(xcls, ycls, params, (("lx", lx),))
+    if xcls.device.type == "cpu":
+        return fwd_dp_plain(xcls, ycls, lx, params)
+    plan = launch_plan(xcls.shape[0], xcls.shape[1], ycls.shape[1])
+    return _launch_fwd(plan, xcls, ycls, lx, params)
 
 
 def bwd_dp(xcls, ycls, lx, ly, params: PairHMMParams):
@@ -312,23 +446,8 @@ def bwd_dp(xcls, ycls, lx, ly, params: PairHMMParams):
     _check(xcls, ycls, params, (("lx", lx), ("ly", ly)))
     if xcls.device.type == "cpu":
         return flip_within(bwd_dp_plain(xcls, ycls, params), lx, ly)
-    B, L1p = xcls.shape
-    L2p = ycls.shape[1]
-    dev = xcls.device
-    out = torch.empty((B, L1p, L2p), dtype=torch.float32, device=dev)
-    scratch = _scratch(B, L2p, dev)
-    lib = build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtt_pairhmm_bwd_f32(
-            xcls.data_ptr(), ycls.data_ptr(), lx.data_ptr(), ly.data_ptr(),
-            params.packed.data_ptr(), out.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            B, L1p, L2p, stream,
-        )
-    build.check(err, "pairhmm_bwd")
-    LAUNCHES["bwd"] += 1
-    return out
+    plan = launch_plan(xcls.shape[0], xcls.shape[1], ycls.shape[1])
+    return _launch_bwd(plan, xcls, ycls, lx, ly, params)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 
 
@@ -78,8 +79,17 @@ def build() -> str:
             "nvcc failed (exit %d): %s\n%s%s"
             % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
         )
+    with open(so + ".ptxas.txt", "w") as fh:
+        fh.write(proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def ptxas_report() -> str:
+    """What ``ptxas -v`` said when the current library was built: every
+    kernel's registers, shared memory and spills."""
+    with open(build() + ".ptxas.txt") as fh:
+        return fh.read()
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,12 +101,17 @@ def load_library() -> ctypes.CDLL:
     # (lcp, npad, q, thr, out, rbv, wrv, stream) -> cudaError_t
     lib.rtt_window_resolve_i32.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp]
     lib.rtt_window_resolve_i32.restype = ci
-    # (xcls, ycls, lx, params, m_out, snap, scratch, B, L1p, L2p, stream)
-    lib.rtt_pairhmm_fwd_f32.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    # (xcls, ycls, lx, params, m_out, snap, scratch, B, L1p, L2p,
+    #  C, G, P, stream)
+    lib.rtt_pairhmm_fwd_f32.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.rtt_pairhmm_fwd_f32.restype = ci
-    # (xcls, ycls, lx, ly, params, out, scratch, B, L1p, L2p, stream)
-    lib.rtt_pairhmm_bwd_f32.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    # (xcls, ycls, lx, ly, params, out, scratch, B, L1p, L2p,
+    #  C, G, P, stream)
+    lib.rtt_pairhmm_bwd_f32.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.rtt_pairhmm_bwd_f32.restype = ci
+    # (forward, B, L1p, P) -> 32-bit words of zeroed scratch
+    lib.rtt_pairhmm_scratch_words.argtypes = [ci] * 4
+    lib.rtt_pairhmm_scratch_words.restype = ctypes.c_long
     return lib
 
 
