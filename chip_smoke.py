@@ -1,9 +1,14 @@
 """Smoke run of the torch port on one CUDA card.
 
-    python3 chip_smoke.py [--seed 1] [--length 2000000] [--only kernels]
+    python3 chip_smoke.py [--seed 1] [--length 2000000]
+                          [--only kernels|profile] [--tree DIR]
 
-``--only kernels`` stops after phase 4 (about a minute): the build and
+``--only kernels`` stops after phase 4 (about two minutes): the build and
 the kernels against their plain versions, for work on a kernel.
+``--only profile`` runs phases 1-2 and 5b only.  ``--tree DIR`` imports
+``reveal_tpu_torch`` from the checkout at DIR instead of this one (with
+``--only profile``: the parent's forest timed beside this one's, in
+turns, on one card in one go).
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -18,14 +23,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plan (pairs sharing a warp, a chain of up to 129 warps a pair; strips
    of 4 and 8 columns; at the two table shapes also the plan that ``refine``'s
    large batches of those shapes launch), and the two DP kernels alone at
-   1,024 tiny pairs;
+   1,024 tiny pairs; the repair-pass kernel (``index/repair.py``) against
+   its plain version (the batched rounds) on the card, at the inputs of
+   every repair pass of the main path: two genomes from
+   ``simulate_population(2, length, seed)`` go through ``cli rem
+   --frontier --device cuda`` while each pass is run on copies plain,
+   kernel, kernel, plain (SA, LCP, BWT and the counters exactly equal),
+   with the times of both from CUDA events;
 4. the card's posteriors against the native float64-exact host pair-HMM
    on a sample of pairs from each bucket;
-5. ``rem``: two genomes from ``simulate_population(2, length, seed)``
-   through ``python -m reveal_tpu_torch.cli rem --frontier --device
-   cuda`` in-process, its GFA held byte for byte against the port's
-   serial host engine (``align_genomes_host``), with the forest's
-   counters and the kernel's launch count checked;
+5. ``rem``: the same two genomes through ``python -m
+   reveal_tpu_torch.cli rem --frontier --device cuda`` in-process, its
+   GFA held byte for byte against the port's serial host engine
+   (``align_genomes_host``), with the forest's counters and the launch
+   counts checked: one repair kernel launch a pass, no window-resolve
+   launch;
+5b. the same ``rem`` three times more: a warm-up, a run with a
+   synchronised host clock around each call of the forest's stages
+   (enumerate, trim, chain, anchor log, children, split, repair pass),
+   and a run under ``torch.profiler`` over the forest (kernel launches,
+   host syncs, device time, the card's busy share, the kernels that take
+   the most device time);
 6. ``refine``: a six-path chain of bubbles (64 with alleles near 500 bp,
    8 near 1900 bp, 10-15% substitutions and indels up to 12 bp between
    alleles) written from ``--seed``, through ``cli refine --all
@@ -69,7 +87,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-RBV = 1024   # repair candidates per round on the main path
+RBV = 1024   # repair candidates per round of the batched rounds
 WRV = 256    # window-resolve lookback
 
 # NVIDIA H100 SXM, published peaks: HBM3 at 3.35 TB/s; float32 outside
@@ -79,6 +97,9 @@ WRV = 256    # window-resolve lookback
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# one dependent round trip to the L2 cache: about 260 clocks on Hopper
+# (published microbenchmarks; not measured by this script) at 1.98 GHz
+L2_ROUND_TRIP_S = 260 / 1.98e9
 # exp + log evaluations a DP cell needs in either direction when the
 # in-row recurrence is run sequentially: the 5-way lse (5 + 1), two
 # 2-way lse for the x inserts (4) and two for the y recurrence (4).  The
@@ -201,6 +222,145 @@ def check_window_resolve(dev):
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": None,
+    }
+
+
+def write_genomes(seed, length, workdir):
+    """Two fastas of ``simulate_population(2, length, seed)`` in
+    ``workdir``; returns (paths, total bp)."""
+    from reveal_tpu_torch.core.io_fasta import fasta_writer
+    from reveal_tpu_torch.utils.simulate import simulate_population
+
+    t0 = time.perf_counter()
+    pop = simulate_population(2, length, seed=seed)
+    fastas = []
+    for name, seq, _ids in pop:
+        fn = os.path.join(workdir, name + ".fa")
+        fasta_writer(fn, [(name, seq)])
+        fastas.append(fn)
+    print("genomes: simulate_population(2, %d, seed=%d): %d + %d bp in "
+          "%.3f s" % (length, seed, len(pop[0][1]), len(pop[1][1]),
+                      time.perf_counter() - t0))
+    return fastas, sum(len(seq) for _n, seq, _i in pop)
+
+
+def check_repair(fastas, workdir):
+    """The repair-pass kernel against its plain version on the card, at
+    the inputs of every repair pass of the main path.
+
+    ``repair.repair_segments`` is wrapped for one ``rem`` run: each pass
+    is first run on fresh copies of SA, LCP and BWT plain, kernel,
+    kernel, plain (``devloop.repair_rounds_plain``, the batched rounds,
+    against the kernel), each call between two CUDA events, the outputs
+    and counters held exactly equal; then the pass goes on as the path
+    runs it.  Returns the row of the kernels line."""
+    import torch
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import devloop, repair
+
+    segments = repair.repair_segments
+    passes = []
+    worst = 0
+
+    def hold(SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX, stats):
+        nonlocal worst
+        rest = (SEG, beg, cq, centry_next, rc, SMAX)
+        times = {"plain": [], "kernel": []}
+        outs = {}
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            fn = devloop.repair_rounds_plain if turn == "plain" else segments
+            arrs = (SA.clone(), LCP.clone(), BWT.clone())
+            st = torch.zeros_like(stats)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*arrs, *rest, st)
+            stop.record()
+            torch.cuda.synchronize()
+            times[turn].append(start.elapsed_time(stop))
+            outs[turn] = (out[:3], st)
+        (kern, kst), (ref, pst) = outs["kernel"], outs["plain"]
+        for name, k, p in zip(("SA", "LCP", "BWT"), kern, ref):
+            err = int((k.long() - p.long()).abs().max())
+            worst = max(worst, err)
+            if err:
+                bad = int((k != p).nonzero()[0, 0])
+                raise AssertionError(
+                    "repair pass %d: kernel %s differs from plain at slot %d "
+                    "(%d vs %d)" % (len(passes), name, bad, int(k[bad]),
+                                    int(p[bad])))
+        if not torch.equal(kst, pst):
+            raise AssertionError("repair pass %d: kernel counters %s, plain "
+                                 "%s" % (len(passes), kst.tolist(),
+                                         pst.tolist()))
+        applied, chain, moved = kst.tolist()
+        # bytes: each moved slot's SA, LCP, BWT read and written once (the
+        # search reads the same LCP words); a candidate's own words
+        # (cq, centry_next, beg, SEG, SA, LCP, BWT at q, LCP at q + 1)
+        nbytes = 24 * moved + 32 * applied
+        passes.append({
+            "rc": int(rc), "applied": applied, "chain": chain,
+            "moved": moved, "ms": sum(times["kernel"]) / 2,
+            "plain_ms": sum(times["plain"]) / 2, "bytes": nbytes,
+            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_chain_ms": chain * L2_ROUND_TRIP_S * 1e3,
+        })
+        return segments(SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX,
+                        stats)
+
+    repair.repair_segments = hold
+    try:
+        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
+                  os.path.join(workdir, "repair_check.gfa")])
+    finally:
+        repair.repair_segments = segments
+    if not passes:
+        raise AssertionError("the rem run made no repair pass")
+    k = len(passes)
+
+    def total(key):
+        return sum(p[key] for p in passes)
+
+    ms, plain_ms = total("ms") / k, total("plain_ms") / k
+    bound_ms = total("bound_bytes_ms") / k
+    chain_ms = total("bound_chain_ms") / k
+    print("repair_pass: kernel equal to plain (SA, LCP, BWT, counters; "
+          "max_abs_err %d) on all %d repair passes of the main path; per "
+          "pass from CUDA events on fresh copies (plain, kernel, kernel, "
+          "plain): kernel %.6f ms (sum %.6f, max %.6f), plain %.6f ms (sum "
+          "%.6f, max %.6f); candidates applied %d, longest run %d, moved "
+          "slots %d (%d bytes); bound per pass %.6f ms by bytes at 3.35 "
+          "TB/s, %.6f ms as the longest run's chain of dependent L2 round "
+          "trips (260 clocks at 1.98 GHz each)"
+          % (worst, k, ms, total("ms"), max(p["ms"] for p in passes),
+             plain_ms, total("plain_ms"),
+             max(p["plain_ms"] for p in passes), total("applied"),
+             max(p["chain"] for p in passes), total("moved"),
+             total("bytes"), bound_ms, chain_ms))
+    for i, p in sorted(enumerate(passes), key=lambda ip: -ip[1]["ms"])[:6]:
+        print("  repair pass %2d: rc %6d, applied %6d, longest run %5d, "
+              "moved %8d, kernel %.6f ms (%.3f us a step of the longest "
+              "run), plain %.6f ms"
+              % (i, p["rc"], p["applied"], p["chain"], p["moved"], p["ms"],
+                 p["ms"] * 1e3 / max(p["chain"], 1), p["plain_ms"]))
+    return {
+        "name": "repair_pass",
+        "route": "cuda",
+        "source": "reveal_tpu_torch/csrc/repair_pass.cu",
+        "replaces": "reveal_tpu/index/devloop.py:114",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "bound_latency_ms": chain_ms,
+        "library_ms": None,
+        "passes": k,
+        "ms_sum": total("ms"),
+        "plain_ms_sum": total("plain_ms"),
+        "longest_run": max(p["chain"] for p in passes),
+        "moved_slots": total("moved"),
     }
 
 
@@ -546,28 +706,14 @@ def check_against_native(dev, seed):
           % (len(pairs), worst_p, worst_s, worst_t, worst_scan))
 
 
-def run_rem(seed, length, workdir):
-    """Port CLI on the card vs the port's host engine; returns the
-    window-resolve launches and the GFA path."""
+def run_rem(fastas, total_bp, workdir):
+    """Port CLI on the card vs the port's host engine; returns the repair
+    kernel's launches, the GFA path and the end-to-end seconds."""
     from reveal_tpu_torch import cli
     from reveal_tpu_torch.align.rem import align_genomes_host
-    from reveal_tpu_torch.core.io_fasta import fasta_writer
     from reveal_tpu_torch.core.io_gfa import seq2node, write_gfa
-    from reveal_tpu_torch.index import devloop
+    from reveal_tpu_torch.index import devloop, repair
     from reveal_tpu_torch.index import window_resolve as wr
-    from reveal_tpu_torch.utils.simulate import simulate_population
-
-    t0 = time.perf_counter()
-    pop = simulate_population(2, length, seed=seed)
-    fastas = []
-    for name, seq, _ids in pop:
-        fn = os.path.join(workdir, name + ".fa")
-        fasta_writer(fn, [(name, seq)])
-        fastas.append(fn)
-    total_bp = sum(len(seq) for _n, seq, _i in pop)
-    print("genomes: simulate_population(2, %d, seed=%d): %d + %d bp in "
-          "%.3f s" % (length, seed, len(pop[0][1]), len(pop[1][1]),
-                      time.perf_counter() - t0))
 
     t0 = time.perf_counter()
     G, idx = align_genomes_host(fastas)
@@ -580,11 +726,13 @@ def run_rem(seed, length, workdir):
 
     port_gfa = os.path.join(workdir, "port.gfa")
     wr.LAUNCHES = 0
+    repair.LAUNCHES = 0
     t0 = time.perf_counter()
     cli.main(["rem", *fastas, "--frontier", "--device", "cuda",
               "-o", port_gfa])
     t_e2e = time.perf_counter() - t0
-    launches = wr.LAUNCHES
+    launches = repair.LAUNCHES
+    wr_launches = wr.LAUNCHES
     st = dict(devloop.LAST_STATS)
 
     with open(host_gfa, "rb") as fh:
@@ -598,21 +746,30 @@ def run_rem(seed, length, workdir):
         )
     if st.get("abort") != 0 or st.get("fallback") is not None:
         raise AssertionError("device forest did not finish: %r" % st)
-    if not st["forest"] > 0 or not st["repair_steps"] > 0:
+    if not st["forest"] > 0 or not st["repair_applied"] > 0:
         raise AssertionError("forest or repair did not run: %r" % st)
-    if not launches > 0 or launches != st["repair_rounds_total"]:
+    # two passes a level (A side, B side) in every dispatch
+    passes = st["repair_rounds_total"]
+    if not (launches > 0 and launches == st["repair_launches"] == passes
+            and (st["dispatches"] > 1 or passes == 2 * st["levels"])):
         raise AssertionError(
-            "window_resolve launched %d times for %d repair rounds"
-            % (launches, st["repair_rounds_total"])
-        )
+            "repair_pass launched %d times for %d passes (%d levels, %d "
+            "dispatches)" % (launches, passes, st["levels"],
+                             st["dispatches"]))
+    if wr_launches != 0:
+        raise AssertionError("window_resolve launched %d times on rem"
+                             % wr_launches)
     print("rem: GFA byte-identical to the host engine's (%d bytes)"
           % len(port_bytes))
     print(
-        "forest: roots=%d slots=%d levels=%d repair_rounds=%d "
-        "anchors=%d dispatches=%d chain_steps=%d trim_steps=%d"
-        % (st["forest"], st["slots"], st["levels"], st["repair_steps"],
+        "forest: roots=%d slots=%d levels=%d repair passes=%d (repair_pass "
+        "launches %d, window_resolve launches 0) anchors=%d dispatches=%d "
+        "chain_steps=%d trim_steps=%d; repair candidates applied %d, "
+        "longest run %d, moved slots %d"
+        % (st["forest"], st["slots"], st["levels"], passes, launches,
            st["anchors"], st["dispatches"], st["chain_steps"],
-           st["trim_steps"])
+           st["trim_steps"], st["repair_applied"], st["repair_chain_max"],
+           st["repair_moved_slots"])
     )
     print(
         "rem times: host_prefix %.6f s, forest %.6f s, end-to-end (fasta "
@@ -621,6 +778,125 @@ def run_rem(seed, length, workdir):
            total_bp / 1e6 / t_e2e, total_bp)
     )
     return launches, port_gfa, t_e2e
+
+
+# the forest's stage functions, in the order of a level
+FOREST_STAGES = ("enumerate_candidates", "trim_dim", "chain_dense",
+                 "log_anchors", "children", "split_level", "repair_pass")
+
+
+def profile_forest(fastas, total_bp, workdir, label):
+    """``rem`` three times more through the CLI, the forest watched: a
+    warm-up run, a run with a synchronised host clock around every call
+    of each of the forest's stage functions, and a run under
+    ``torch.profiler`` over ``rem_device_forest``.  Only names that this
+    checkout and its parent both have (the stage functions,
+    ``rem_device_forest``, ``LAST_STATS``) are used, so that ``--tree``
+    can run it on the parent."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import devloop
+
+    out = os.path.join(workdir, "profile.gfa")
+
+    def rem():
+        t0 = time.perf_counter()
+        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
+                  out])
+        return time.perf_counter() - t0
+
+    t_first = rem()
+    originals = {name: getattr(devloop, name) for name in FOREST_STAGES}
+    secs = dict.fromkeys(FOREST_STAGES, 0.0)
+    calls = dict.fromkeys(FOREST_STAGES, 0)
+
+    def clocked(name):
+        fn = originals[name]
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return res
+        return run
+
+    for name in FOREST_STAGES:
+        setattr(devloop, name, clocked(name))
+    try:
+        t_e2e = rem()
+    finally:
+        for name, fn in originals.items():
+            setattr(devloop, name, fn)
+    st = dict(devloop.LAST_STATS)
+    rest = t_e2e - st["forest_seconds"] - st["host_prefix_seconds"]
+    print("%s rem (first run in the process %.6f s end to end), then with "
+          "a synchronised host clock around each call of the forest's "
+          "stages: %s; forest %.6f s, host prefix %.6f s, the rest of rem "
+          "(fasta read, host ESA, replay, GFA write) %.6f s, end to end "
+          "%.6f s (%.6f Mbp/s)"
+          % (label, t_first,
+             ", ".join("%s %.6f s (%d calls)" % (n, secs[n], calls[n])
+                       for n in FOREST_STAGES),
+             st["forest_seconds"], st["host_prefix_seconds"], rest, t_e2e,
+             total_bp / 1e6 / t_e2e))
+
+    forest = devloop.rem_device_forest
+    traced = {}
+
+    def profiled(*args, **kw):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = forest(*args, **kw)
+            torch.cuda.synchronize()
+            traced["wall"] = time.perf_counter() - t0
+        traced["prof"] = prof
+        return res
+
+    devloop.rem_device_forest = profiled
+    try:
+        rem()
+    finally:
+        devloop.rem_device_forest = forest
+    counts = {}
+    for evt in traced["prof"].key_averages():
+        counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    # device time: the kernels and copies themselves (an operator's own
+    # device time repeats its kernels'), by name
+    by_name = {}
+    for evt in traced["prof"].events():
+        if evt.device_type == DeviceType.CUDA:
+            us, n = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (us + evt.time_range.elapsed_us(), n + 1)
+    device = [(us, n, name) for name, (us, n) in by_name.items()]
+    device_us = sum(d[0] for d in device)
+    launches = sum(v for k, v in counts.items()
+                   if k in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cuLaunchKernelEx", "cudaLaunchKernelExC"))
+    syncs = counts.get("aten::_local_scalar_dense", 0)
+    stream_syncs = counts.get("cudaStreamSynchronize", 0)
+    busy = ("%.1f%%" % (100.0 * device_us / 1e6 / traced["wall"])
+            if device_us > 0 else "not measured (no device time traced)")
+    print("%s forest under torch.profiler: %d kernel launches, %d host syncs "
+          "(aten::_local_scalar_dense: .item(), int(), bool() of a device "
+          "value), %d cudaStreamSynchronize, device time %.6f s over a "
+          "traced forest wall of %.6f s: card busy %s"
+          % (label, launches, syncs, stream_syncs, device_us / 1e6,
+             traced["wall"], busy))
+    for us, count, key in sorted(device, reverse=True)[:8]:
+        print("  device %.6f s in %d calls of %s" % (us / 1e6, count,
+                                                    key[:90]))
+    for us, count, key in device:
+        if "repair_pass" in key or "window_resolve" in key:
+            print("  the port's own kernel %s: device %.6f s in %d calls, "
+                  "%.6f ms a call" % (key[:90], us / 1e6, count,
+                                      us / 1e3 / count))
 
 
 def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
@@ -912,10 +1188,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
-    ap.add_argument("--only", choices=["kernels"], default=None,
+    ap.add_argument("--only", choices=["kernels", "profile"], default=None,
                     help="'kernels': phases 1-4 only (the build and the "
-                         "kernels against their plain versions); prints "
+                         "kernels against their plain versions); "
+                         "'profile': phases 1-2 and 5b only; either prints "
                          "no result lines")
+    ap.add_argument("--tree", default=None,
+                    help="import reveal_tpu_torch from this checkout (a "
+                         "parent's, to time it beside this one)")
     args = ap.parse_args(argv)
 
     import torch
@@ -925,7 +1205,7 @@ def main(argv=None):
             "chip_smoke: torch.cuda.is_available() is False (torch %s)"
             % torch.__version__
         )
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.tree) if args.tree else REPO)
     from reveal_tpu_torch.kernels import build
     from reveal_tpu_torch.native import get_lib
 
@@ -960,18 +1240,31 @@ def main(argv=None):
           % native["seconds"])
     print_ptxas(build.ptxas_report())
 
-    rows = [check_window_resolve(dev)] + check_pairhmm(dev)
-    check_against_native(dev, args.seed)
-    if args.only == "kernels":
-        print("chip_smoke --only kernels: phases 1-4 passed")
-        return
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".smoke_") as wd:
-        rem_launches, rem_gfa, t_rem = run_rem(args.seed, args.length, wd)
+        fastas, total_bp = write_genomes(args.seed, args.length, wd)
+        if args.only == "profile":
+            profile_forest(fastas, total_bp, wd,
+                           "tree %s:" % (args.tree or "."))
+            print("chip_smoke --only profile: phases 1-2 and 5b passed")
+            return
+        rows = [check_window_resolve(dev)] + check_pairhmm(dev)
+        rows.append(check_repair(fastas, wd))
+        check_against_native(dev, args.seed)
+        if args.only == "kernels":
+            print("chip_smoke --only kernels: phases 1-4 passed")
+            return
+        rem_launches, rem_gfa, t_rem = run_rem(fastas, total_bp, wd)
+        profile_forest(fastas, total_bp, wd, "this checkout:")
         dp_launches, dp_batches = run_refine(args.seed, wd)
         run_rem_then_refine(rem_gfa, wd, t_rem)
-    rows[0]["launches"] = rem_launches
+    # window-resolve is off the rem path since the repair pass became one
+    # kernel (run_rem checked that it launched 0 times there)
+    rows[0]["launches"] = 0
+    rows[0]["main_path"] = ("none: rem's repair passes run "
+                            "csrc/repair_pass.cu, which searches itself")
     rows[1]["launches"] = dp_launches["fwd"]
     rows[2]["launches"] = dp_launches["bwd"]
+    rows[3]["launches"] = rem_launches
     for key, row in (("fwd_ms", rows[1]), ("bwd_ms", rows[2])):
         # what the main path launched: batch, plan and time a launch
         row["main_path_batches"] = [

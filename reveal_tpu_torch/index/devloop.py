@@ -6,8 +6,9 @@ chain_width=CW)`` (the dense-chain forest form) and
 prefix runs level by level on the device.  Each level enumerates MUM
 candidates, trims them, runs the dense chain DP with the ``largest``
 pick, logs anchors, classifies/splits/lowercases, applies the stable
-partition and does the batched boundary repair, whose insertion-point
-search is the CUDA kernel of ``index/window_resolve.py``.
+partition and does the boundary repair: on the card one launch of the
+CUDA kernel of ``index/repair.py`` a pass, on the CPU the JAX kernel's
+batched repair rounds (``repair_rounds_plain``).
 
 Every stage is a module-level function on int32 tensors; all outputs
 are bit-identical to the JAX kernel's.  The JAX ``while_loop``s and
@@ -29,7 +30,8 @@ import torch
 
 from ..core.encoding import N_BYTE, SENTINEL
 from ..core.torchconfig import INDEX_DTYPE
-from .window_resolve import window_resolve
+from . import repair
+from .window_resolve import window_resolve_plain
 
 log = logging.getLogger(__name__)
 
@@ -68,8 +70,14 @@ _RETRYABLE = {
 }
 
 # stats of the most recent rem_device_forest call, with the keys of the
-# JAX package's LAST_STATS; repair_rounds_total counts the repair rounds
-# of every dispatch, capacity retries included (= window_resolve calls)
+# JAX package's LAST_STATS.  repair_steps counts the last dispatch's
+# batched repair rounds on the CPU and its repair launches (one a pass)
+# on the card; repair_rounds_total sums repair_steps over every dispatch,
+# capacity retries included; repair_launches counts the repair kernel's
+# launches of every dispatch (0 on the CPU).  repair_applied,
+# repair_chain_max and repair_moved_slots are the repair counters of the
+# last dispatch: candidates applied, the longest run of one segment's
+# candidates in one pass, and the sum of q - x over the movers.
 LAST_STATS = {}
 
 
@@ -769,7 +777,7 @@ def apply_one(SA, LCP, BWT, rq: RepairQueue, q, x, move, thr, saq, lcq,
     return SA, LCP, BWT
 
 
-def repair_round(SA, LCP, BWT, pend, rq: RepairQueue):
+def repair_round(SA, LCP, BWT, pend, rq: RepairQueue, stats):
     """One whole-batch repair round (``rbody``).
 
     The first RBV pending candidates are resolved at once through the
@@ -792,7 +800,7 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue):
     lcq = take(LCP, q)
     thr = b - saq
     move = (saq < b) & (saq + lcq > b)
-    y = window_resolve(LCP, q, thr, _WRV)
+    y = window_resolve_plain(LCP, q, thr, _WRV)
     # a window hit IS the global max y; a clipped window (q <= WRV)
     # that misses means x = 0 exactly
     resolved = (y >= 0) | (q - _WRV <= 0)
@@ -842,6 +850,7 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue):
         )
         pend = scatter_drop(pend, torch.where(acc, heads, CCAP + iar_r),
                             False)
+        stats[2] += torch.where(accm, q - x, 0).sum()
         return SA2, LCP2, BWT2, pend
 
     j = int(heads[0])
@@ -850,31 +859,67 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue):
         SA, LCP, BWT, rq, q1, x1, mv1, thr1, saq1, lcq1, int(BWT[q1]), j,
         bool(hvalid[0]),
     )
+    if mv1:
+        stats[2] += q1 - x1
     pend = pend.clone()
     pend[j] = False
     return SA, LCP, BWT, pend
 
 
-def repair_pass(SA, LCP, BWT, SEG, is_lead, beg, CCAP, SMAX, abort):
-    """Repair every leading child's suffixes that cross its begin on
-    one side (``beg``).  Returns (SA, LCP, BWT, abort, rounds)."""
+def repair_rounds_plain(SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX,
+                        stats):
+    """Plain version of ``repair.repair_segments``: the pass's crossing
+    suffixes ``cq[:min(rc, CCAP)]`` applied by batched repair rounds (the
+    JAX kernel's ``while_loop`` over ``rbody``), one host sync a round.
+    Adds to ``stats`` as the kernel does.  Returns (SA, LCP, BWT,
+    rounds)."""
+    npad = SA.shape[0]
+    CCAP = cq.shape[0]
+    rq = RepairQueue(
+        cq=cq, centry_next=centry_next, beg=beg, SEG=SEG, SMAX=SMAX,
+        # repair window: full-array on tiny inputs (always exact there)
+        WREP=min(_WREP, npad - 2),
+    )
+    n = int(rc.clamp(max=CCAP))
+    if n:
+        runs = torch.unique_consecutive(take(SEG, cq[:n]),
+                                        return_counts=True)[1]
+        stats[0] += n
+        stats[1] = torch.maximum(stats[1], runs.max())
+    pend = arange32(CCAP, SA.device) < n
+    rounds = 0
+    while rounds < CCAP and bool(pend.any()):
+        SA, LCP, BWT, pend = repair_round(SA, LCP, BWT, pend, rq, stats)
+        rounds += 1
+    return SA, LCP, BWT, rounds
+
+
+def repair_queue(SA, LCP, is_lead, beg, CCAP, abort):
+    """The crossing suffixes of one repair pass: every leading child's
+    slot whose suffix crosses its begin on one side (``beg``).  Returns
+    (cq, centry_next, rc, abort): the first CCAP slots, ascending (padded
+    with npad - 1), ``LCP[cq + 1]`` now, their count, and the abort code
+    with ``ABORT_REPAIR_OVERFLOW`` set where they do not fit."""
     npad = SA.shape[0]
     lcpn = shift_left(LCP, 0)
     cross0 = is_lead & (SA < beg) & (((SA + LCP) > beg) | ((SA + lcpn) > beg))
     rc = cross0.sum(dtype=I32)
     abort = torch.where(rc > CCAP, ABORT_REPAIR_OVERFLOW, abort)
     cq = compact(cross0, CCAP, npad - 1)
-    rq = RepairQueue(
-        cq=cq, centry_next=take(lcpn, cq), beg=beg, SEG=SEG, SMAX=SMAX,
-        # repair window: full-array on tiny inputs (always exact there)
-        WREP=min(_WREP, npad - 2),
+    return cq, take(lcpn, cq), rc, abort
+
+
+def repair_pass(SA, LCP, BWT, SEG, is_lead, beg, CCAP, SMAX, abort, stats):
+    """Repair every leading child's suffixes that cross its begin on
+    one side (``beg``): one launch of the repair kernel on the card,
+    batched rounds on the CPU.  Returns (SA, LCP, BWT, abort, steps)
+    with steps = rounds on the CPU, 1 on the card."""
+    cq, centry_next, rc, abort = repair_queue(SA, LCP, is_lead, beg, CCAP,
+                                              abort)
+    SA, LCP, BWT, steps = repair.repair_segments(
+        SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX, stats
     )
-    pend = arange32(CCAP, SA.device) < rc.clamp(max=CCAP)
-    rounds = 0
-    while rounds < CCAP and bool(pend.any()):
-        SA, LCP, BWT, pend = repair_round(SA, LCP, BWT, pend, rq)
-        rounds += 1
-    return SA, LCP, BWT, abort, rounds
+    return SA, LCP, BWT, abort, steps
 
 
 # ----------------------------------------------------------------------
@@ -897,8 +942,10 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
     ``Tu8``: (ntext,) uint8 text; ``SA``/``LCP``/``SEG``: (npad,) int32
     slots; ``seg_tab``: (SMAX, 8) int32 rows a_beg a_end b_beg b_end
     parent cls ma mb.  Returns (T_u8, anchors, acount, abort, level,
-    steps) with steps = [trim rows, chain column steps, repair
-    rounds], as the JAX kernel's ``run``."""
+    steps, repair_stats) with steps = [trim rows, chain column steps,
+    repair steps] (the JAX kernel's ``run``; repair steps are batched
+    rounds on the CPU, launches on the card) and repair_stats the repair
+    counters [applied, longest run, moved slots]."""
     dev = SA.device
     T = Tu8.to(I32)
     # BWT column T[SA-1]; SA == 0 wraps to slot 0 (the a_ == 0 guard in
@@ -909,6 +956,7 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
     abort = torch.zeros((), dtype=I32, device=dev)
     sarange = arange32(caps.SMAX, dev)
     steps = [torch.zeros((), dtype=I32, device=dev), 0, 0]
+    rstats = torch.zeros(3, dtype=torch.int64, device=dev)
     nseg = nseg0
     level = 0
     while nseg > 0 and level < _LMAX:
@@ -940,7 +988,7 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
             beg = torch.where(is_lead, brows2[:, which], -1)
             SA, LCP, BWT, abort, iters = repair_pass(
                 SA, LCP, BWT, SEG, is_lead, beg, caps.CCAP, caps.SMAX,
-                abort,
+                abort, rstats,
             )
             steps[2] += iters
         acount = (acount + npicked).clamp(max=caps.ACAP)
@@ -953,7 +1001,8 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
     if abort == 0 and level >= _LMAX:
         abort = ABORT_LEVEL_OVERFLOW
     steps = [int(steps[0]), steps[1], steps[2]]
-    return T.to(torch.uint8), anchors, int(acount), abort, level, steps
+    return (T.to(torch.uint8), anchors, int(acount), abort, level, steps,
+            rstats.tolist())
 
 
 def rem_device_forest(T, defers, nsep0, minlength, maxmums, wscore=1,
@@ -1013,13 +1062,14 @@ def rem_device_forest(T, defers, nsep0, minlength, maxmums, wscore=1,
 
     dispatches = 0
     repair_total = 0
+    launches0 = repair.LAUNCHES
     for _attempt in range(5):
         if F > caps.SMAX:
             caps.SMAX = _next_pow2(F)
         seg_tab = np.zeros((caps.SMAX, 8), dtype=np.int32)
         for sid, (_k, ab, ae, bb, be, _sa, _lcp) in enumerate(defers):
             seg_tab[sid] = (ab, ae, bb, be, -2 - sid, 0, -1, -1)
-        T_out, anchors, acount, abort, level, steps = forest_run(
+        T_out, anchors, acount, abort, level, steps, rstats = forest_run(
             dev_tensor(T_p), dev_tensor(SA_p), dev_tensor(LCP_p),
             dev_tensor(SEG_p), dev_tensor(seg_tab), F, int(nsep0),
             int(minlength), int(maxmums), int(wscore), int(wpen), caps,
@@ -1040,6 +1090,9 @@ def rem_device_forest(T, defers, nsep0, minlength, maxmums, wscore=1,
         levels=level, dispatches=dispatches, anchors=acount, abort=abort,
         forest=F, slots=total, trim_steps=steps[0], chain_steps=steps[1],
         repair_steps=steps[2], repair_rounds_total=repair_total,
+        repair_launches=repair.LAUNCHES - launches0,
+        repair_applied=rstats[0], repair_chain_max=rstats[1],
+        repair_moved_slots=rstats[2],
     )
     if abort:
         log.info("device forest aborted (code %d)", abort)

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -63,24 +63,44 @@ def library_path() -> str:
     )
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise with the output of the
+    first that fails.  Returns their standard error, in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit %d): %s\n%s%s"
+                % (p.returncode, " ".join(cmd), out, err)
+            )
+    return [err for _out, err in outs]
+
+
 def build() -> str:
     """Compile the sources if their library is missing; return its
-    path.  Raises ``RuntimeError`` with nvcc's output on failure."""
+    path.  One nvcc per source, all started together, then one link.
+    Raises ``RuntimeError`` with nvcc's output on failure."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.tmp.%d" % (so, os.getpid())
     cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed (exit %d): %s\n%s%s"
-            % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
-        )
+    objs = ["%s.%s.o" % (tmp, os.path.basename(cu)) for cu in cus]
+    nvcc = _nvcc()
+    try:
+        reports = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, cu]
+                            for cu, obj in zip(cus, objs)])
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(so + ".ptxas.txt", "w") as fh:
-        fh.write(proc.stderr)
+        fh.write("".join(reports))
     os.replace(tmp, so)
     return so
 
@@ -101,6 +121,10 @@ def load_library() -> ctypes.CDLL:
     # (lcp, npad, q, thr, out, rbv, wrv, stream) -> cudaError_t
     lib.rtt_window_resolve_i32.argtypes = [vp, ci, vp, vp, vp, ci, ci, vp]
     lib.rtt_window_resolve_i32.restype = ci
+    # (sa, lcp, bwt, seg, beg, cq, centry_next, rc, ticket, stats, npad,
+    #  ccap, grid, stream)
+    lib.rtt_repair_pass_i32.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+    lib.rtt_repair_pass_i32.restype = ci
     # (xcls, ycls, lx, params, m_out, snap, scratch, B, L1p, L2p,
     #  C, G, P, stream)
     lib.rtt_pairhmm_fwd_f32.argtypes = [vp] * 7 + [ci] * 6 + [vp]
