@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--seed 1] [--length 2000000]
                           [--only kernels|profile] [--tree DIR]
 
-``--only kernels`` stops after phase 4 (about two minutes): the build and
-the kernels against their plain versions, for work on a kernel.
+``--only kernels`` stops after phase 4 (about three minutes): the build
+and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--tree DIR`` imports
 ``reveal_tpu_torch`` from the checkout at DIR instead of this one (with
 ``--only profile``: the parent's forest timed beside this one's, in
@@ -21,15 +21,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    window-resolve (exact int32 equality), the pair-HMM forward and
    backward DP (float32, limits stated below) under every kind of launch
    plan (pairs sharing a warp, a chain of up to 129 warps a pair; strips
-   of 4 and 8 columns; at the two table shapes also the plan that ``refine``'s
-   large batches of those shapes launch), and the two DP kernels alone at
+   of 4 and 8 columns; at the two table shapes also the plan that
+   ``refine``'s two-phase batches of those shapes launch; the square
+   buckets of the stage-1+2 chain), and the two DP kernels alone at
    1,024 tiny pairs; the repair-pass kernel (``index/repair.py``) against
    its plain version (the batched rounds) on the card, at the inputs of
    every repair pass of the main path: two genomes from
    ``simulate_population(2, length, seed)`` go through ``cli rem
    --frontier --device cuda`` while each pass is run on copies plain,
    kernel, kernel, plain (SA, LCP, BWT and the counters exactly equal),
-   with the times of both from CUDA events;
+   with the times of both from CUDA events; the MEA-score row scan
+   (``hmm/mea_score.py``) bit for bit against its plain loop at the
+   shapes of both refine routes, the widest bucket and edge widths;
 4. the card's posteriors against the native float64-exact host pair-HMM
    on a sample of pairs from each bucket;
 5. ``rem``: the same two genomes through ``python -m
@@ -47,27 +50,41 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6. ``refine``: a six-path chain of bubbles (64 with alleles near 500 bp,
    8 near 1900 bp, 10-15% substitutions and indels up to 12 bp between
    alleles) written from ``--seed``, through ``cli refine --all
-   --minsize 2 --maxsize 10000 --device cuda``; every path of the
-   refined GFA must spell its input, every bubble must come back
-   aligned, and the forward and backward kernels must each have been
-   launched once per batch.  The same GFA then goes through the native
-   float64 route for stage 1 and the number of bubbles whose refined
-   subgraph differs is printed.  Stage 1 is then run again on the same
-   pairs phase by phase (pack and copy in, classes and reversal, forward
-   kernel, backward kernel, combine, cut with the MEA row scan, top-K and
-   copy back), which gives the kernels' time at every batch ``refine``
-   launched and their share of stage 1;
-7. ``rem`` then ``refine`` end to end on the 2 x ``length`` GFA of
-   phase 5.
+   --minsize 2 --maxsize 10000 --device cuda``, which takes the
+   stage-1+2 chain for every bubble; every path of the refined GFA must
+   spell its input, every bubble must come back aligned, the forward and
+   backward kernels must each have been launched once per DP batch of
+   the chain and the MEA-score kernel once per chunk.  The chain of the
+   same bubbles then runs once more with a synchronised clock around its
+   steps, each of its MEA-score launches held against the plain loop on
+   its own input and each pair's score against the host MEA DP of its
+   posterior.  The same GFA then goes through the two-phase route on the
+   card (stage 1 on the card, stage 2 on the host): the bubbles whose
+   refined subgraph differs are counted and the transformed matrices
+   held against the chain's.  Stage 1 of the two-phase route is then run
+   again phase by phase (pack and copy in, classes and reversal, forward
+   kernel, backward kernel, combine, cut with the MEA-score kernel, top-K
+   and copy back).  A 13-bubble graph goes through the native float64
+   route for stage 1 beside the card's, with the differing bubbles
+   counted; the MEA-score kernel and the relaxation products are timed
+   at the chain's shapes;
+6b. a graph of one six-path bubble of about 4 kbp (its chain tensor over
+   ``msa.CHAIN_BYTES_CAP``) and four near 500 bp: the chain for four
+   bubbles and the two-phase route for one in one run;
+7. ``rem`` then ``refine`` (on the chain) end to end on the 2 x
+   ``length`` GFA of phase 5.
 
 Limits: M and G0 cells where kernel and plain are both above LOG_ZERO/2
 agree within 1e-4 * max(L1p, L2p) (float32 at magnitudes that grow with
 the length); posteriors within gate = max(2e-3, 4e-5 * max(lx, ly)).  The
 card's MEA score equals the host MEA DP of the card's own dense posterior
-within 1e-5 relative (the row scan, apart from float32 drift of the DP),
-and the native float64 route's score within 1e-2 * min(lx, ly): a score
-sums one posterior per aligned base, the float32 errors of a pair's cells
-share their sign, and sound runs read about 4e-3 a base at 2048 bp.
+within 1e-5 relative (the two-phase cut) and 1e-6 (the chain), and the
+native float64 route's score within 1e-2 * min(lx, ly): a score sums one
+posterior per aligned base, the float32 errors of a pair's cells share
+their sign, and sound runs read about 4e-3 a base at 2048 bp.  The MEA-
+score kernel equals its plain loop exactly.  The chain's transformed
+matrices are within 5e-3 of the two-phase route's, except cells within
+that of the 0.01 cut that one route keeps and the other drops.
 
 The line before the last is a JSON object describing the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -436,13 +453,21 @@ def check_pairhmm(dev):
     worst = {"fwd": 0.0, "bwd": 0.0, "post": 0.0}
     times = {}
 
-    def compare(name, pairs, time_iters=0, plain_again=True, force=()):
+    def compare(name, pairs, time_iters=0, plain_again=True, force=(),
+                square=None):
         """Kernels against plain under the plan ``launch_plan`` picks and
         then under every strip width of ``force``, on the same plain
         grids: both strip widths and every way of laying pairs over warps
-        are checked on every run, the main path's among them."""
-        (batch,) = list(dp.batches(pairs, dev))
-        L1p, L2p, _idxs, x, y, lx, ly = batch
+        are checked on every run, the main path's among them.  With
+        ``square``, the pairs are padded to square x square as the
+        stage-1+2 chain pads them, else bucketed as the two-phase route
+        does."""
+        if square:
+            L1p = L2p = square
+            x, y, lx, ly = dp.pack(pairs, square, square, dev)
+        else:
+            (batch,) = list(dp.batches(pairs, dev))
+            L1p, L2p, _idxs, x, y, lx, ly = batch
         B = len(pairs)
         lim = 1e-4 * max(L1p, L2p)
         gate = torch.clamp(4e-5 * torch.maximum(lx, ly).float(), min=2e-3)
@@ -623,6 +648,14 @@ def check_pairhmm(dev):
     compare("short_x_wide_y", sw, force=[4])
     # the many-tiny-bubbles batch of rem then refine
     time_only("B1024_tiny", _related_pairs(rng, 1024, 2, 16), 20)
+    # the stage-1+2 chain's square buckets on the 72-bubble graph (a chunk
+    # of 7 six-path bubbles near 500 bp, one near 1900 bp) and on the rem
+    # GFA (two-path bubbles of a few bp)
+    compare("chain_B105_L512", _related_pairs(rng, 105, 440, 510),
+            time_iters=10, square=512)
+    compare("chain_B15_L2048", _related_pairs(rng, 15, 1750, 2040),
+            time_iters=5, plain_again=False, square=2048)
+    compare("chain_B1024_L32", _related_pairs(rng, 1024, 1, 30), square=32)
 
     rows = []
     tiny = times["B1024_tiny"]
@@ -649,7 +682,173 @@ def check_pairhmm(dev):
             "plan_B32_L1p2049_L2p2176": big["plan"],
             "ms_B1024_L1p17_L2p128": tiny[key],
         })
+        for name, shape in (("chain_B105_L512", "B105_L1p512_L2p512"),
+                            ("chain_B15_L2048", "B15_L1p2048_L2p2048")):
+            t = times[name]
+            rows[-1].update({"ms_" + shape: t[key],
+                             "plain_ms_" + shape: t["plain_" + key],
+                             "bound_ms_" + shape: t["bound"],
+                             "plan_" + shape: t["plan"]})
     return rows
+
+
+# the MEA-score kernel's latency chain a row (csrc/mea_score.cu): five
+# dependent shuffles, two barriers and three shared-memory round trips,
+# about 250 clocks (published Hopper latencies; not measured by this
+# script) at 1.98 GHz
+BLOCK_SCAN_S = 250 / 1.98e9
+
+# the MEA-score shapes: what refine's two-phase route launches on the
+# 72-bubble graph, the chain's on it and on the rem GFA, the widest
+# bucket of --maxsize 10000, and edge widths
+MEA_CASES = (
+    ("two-phase B943 513x640", 943, 513, 640, 512),
+    ("two-phase B120 2049x2176", 120, 2049, 2176, 2048),
+    ("chain B105 512x512", 105, 512, 512, 511),
+    ("chain B15 2048x2048", 15, 2048, 2048, 2047),
+    ("chain B1024 32x32", 1024, 32, 32, 31),
+    ("widest B1 65x16512", 1, 65, 16512, 64),
+    ("edge B3 9x4", 3, 9, 4, 8),
+    ("edge B2 17x28672", 2, 17, 28672, 16),
+    ("edge no rows", 4, 33, 64, 0),
+)
+# the case of the kernels line until the main path's own inputs replace it
+MEA_MAIN_CASE = "chain B105 512x512"
+
+
+def _mea_bounds(B, L1p, L2p, nrows):
+    """(bound ms, bound_by, latency floor ms) of a MEA-score launch: the
+    rows scanned read once and the scores written, one add and two maxima
+    a cell at the float32 peak; the floor is nrows block scans a wave of
+    resident blocks."""
+    from reveal_tpu_torch.hmm import mea_score as ms
+
+    nbytes = B * nrows * L2p * 4 + B * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 3 * B * nrows * L2p / F32_OPS_PER_S * 1e3
+    threads, _k4 = ms.plan(L2p)
+    smem = (2 * L2p + 32) * 4
+    per_sm = max(1, min(32, 2048 // threads, 232448 // smem))
+    waves = math.ceil(B / (132 * per_sm))
+    floor = nrows * BLOCK_SCAN_S * waves * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", floor)
+
+
+def time_mea(p, nrows, iters):
+    """Kernel and plain ms a call (CUDA events; plain, kernel, kernel,
+    plain), with the bound and the floor."""
+    from reveal_tpu_torch.hmm import mea_score as ms
+
+    ms.mea_score(p, nrows)
+    pl1 = _event_ms(lambda: ms.mea_score_plain(p, nrows), 1)
+    k1 = _event_ms(lambda: ms.mea_score(p, nrows), iters)
+    k2 = _event_ms(lambda: ms.mea_score(p, nrows), iters)
+    pl2 = _event_ms(lambda: ms.mea_score_plain(p, nrows), 1)
+    bound, by, floor = _mea_bounds(*p.shape, nrows)
+    return {"shape": "%d x %d x %d, %d rows" % (*p.shape, nrows),
+            "ms": (k1 + k2) / 2, "plain_ms": (pl1 + pl2) / 2,
+            "bound_ms": bound, "bound_by": by, "bound_latency_ms": floor}
+
+
+def check_mea_score(dev):
+    """The MEA-score kernel against its plain loop on the card, bit for
+    bit, on posterior-like grids at every shape of MEA_CASES (rows beyond
+    a pair's length zero, as a batch's shorter pairs have them), with
+    the times of both.  Returns the row of the kernels line."""
+    import torch
+
+    from reveal_tpu_torch.hmm import mea_score as ms
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    times = []
+    for name, B, L1p, L2p, nrows in MEA_CASES:
+        p = torch.rand((B, L1p, L2p), generator=gen, device=dev) ** 8
+        p[:, 0] = 0.0
+        p[:, :, 0] = 0.0
+        p[:, nrows + 1:] = 0.0
+        short = torch.randint(0, nrows + 1, (B,), generator=gen, device=dev)
+        rows = torch.arange(L1p, device=dev)
+        p.mul_((rows[None, :] <= short[:, None]).float()[:, :, None])
+        got = ms.mea_score(p, nrows)
+        ref = ms.mea_score_plain(p, nrows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError("mea_score %s differs from plain by %g"
+                                 % (name, float((got - ref).abs().max())))
+        threads, k4 = ms.plan(L2p)
+        line = "mea_score %-26s equal to plain (max_abs_err 0); %d threads " \
+               "a block, %d columns a thread" % (name, threads, 4 * k4)
+        if B * L1p * L2p >= 1 << 20:
+            t = time_mea(p, nrows, 10)
+            times.append(dict(t, case=name))
+            line += ("; per call from CUDA events (plain, kernel x10, "
+                     "kernel x10, plain): kernel %.6f ms, plain %.6f ms, "
+                     "bound %.6f ms by %s, row-chain floor %.6f ms"
+                     % (t["ms"], t["plain_ms"], t["bound_ms"],
+                        t["bound_by"], t["bound_latency_ms"]))
+        print(line)
+        del p
+    main = next(t for t in times if t["case"] == MEA_MAIN_CASE)
+    return {
+        "name": "mea_score",
+        "route": "cuda",
+        "source": "reveal_tpu_torch/csrc/mea_score.cu",
+        "replaces": "reveal_tpu/hmm/msa.py:600",
+        "replaces_kind": "XLA-level code (the chain's lax.scan of cummax), "
+                         "no Pallas kernel",
+        "max_abs_err": 0.0,
+        "shape": main["shape"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "bound_latency_ms": main["bound_latency_ms"],
+        "library_ms": None,
+        "cases": times,
+    }
+
+
+# a chunk of 7 six-path bubbles at Lq 512 and one at Lq 2048
+RELAX_SHAPES = ((7, 6, 512), (1, 6, 2048))
+# posterior cells of the 72-bubble graph at the least
+REFINE_MIN_CELLS = 200_000_000
+
+
+def time_relaxation(dev):
+    """The consistency products on the card against their flop bound: two
+    relaxation rounds (``msa.consistency_rounds``, float32, TF32 off) of
+    the chain's two bucket shapes on the 72-bubble graph."""
+    import torch
+
+    from reveal_tpu_torch.hmm import msa
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matrix products")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = []
+    for B, N, Lq in RELAX_SHAPES:
+        Q = torch.rand((B, N, N, Lq, Lq), generator=gen, device=dev)
+        Q = torch.where(Q > 0.999, Q * 10, torch.zeros((), device=dev))
+        Q = (Q + Q.transpose(1, 2).transpose(-1, -2)) / 2
+        d = torch.arange(N, device=dev)
+        Q[:, d, d] = torch.eye(Lq, device=dev)
+        msa.consistency_rounds(Q.clone(), 2, False)
+        ms = (_event_ms(lambda: msa.consistency_rounds(Q.clone(), 2, False),
+                        3)
+              + _event_ms(lambda: msa.consistency_rounds(Q.clone(), 2,
+                                                         False), 3)) / 2
+        flops = 2 * B * N * (N - 1) // 2 * (N - 2) * 2 * Lq ** 3
+        bound = flops / F32_OPS_PER_S * 1e3
+        print("consistency rounds B=%d N=%d Lq=%d, 2 rounds (%d float32 "
+              "products of %d x %d, TF32 off): %.6f ms a call (CUDA events, "
+              "two turns of 3, with the clone of Q), %.3e flops, bound %.6f "
+              "ms at 67 TFLOP/s (%.1f%% of it)"
+              % (B, N, Lq, 2 * B * N * (N - 1) // 2 * (N - 2), Lq, Lq, ms,
+                 flops, bound, 100.0 * bound / ms))
+        out.append({"shape": "B=%d N=%d Lq=%d" % (B, N, Lq), "ms": ms,
+                    "bound_ms": bound})
+    return out
 
 
 def check_against_native(dev, seed):
@@ -973,37 +1172,124 @@ def _check_paths(gfa, want):
     return G
 
 
-def _expected_batches(pair_shapes):
-    """Batches that pairs of these padded shapes make on the card."""
+def _expected_batches(st):
+    """(two-phase DP batches, chain chunks, chain DP batches) that a
+    refine run with these stats makes on the card, reckoned from the
+    bubbles' shapes by the rules of ``msa.batch_stage12_device`` and
+    ``pairhmm_dp.batches``."""
+    from reveal_tpu_torch.hmm import msa
     from reveal_tpu_torch.hmm import pairhmm_dp as dp
 
-    return sum(math.ceil(c / dp.batch_size(L1p, L2p, "cuda"))
-               for (L1p, L2p), c in pair_shapes.items())
+    two = sum(math.ceil(c / dp.batch_size(L1p, L2p, "cuda"))
+              for (L1p, L2p), c in st["pair_shapes"].items())
+    chunks = chain_dp = 0
+    for (N, Lq), n in st["chain_shapes"].items():
+        maxb = max(1, msa.CHUNK_BYTES // (N * N * Lq * Lq * 4))
+        for lo in range(0, n, maxb):
+            chunks += 1
+            chain_dp += math.ceil(min(maxb, n - lo) * N * (N - 1) // 2
+                                  / dp.batch_size(Lq, Lq, "cuda"))
+    return two, chunks, chain_dp
 
 
-def _refine_on_card(gfa, out, label):
-    """One ``cli refine`` run on the card with the launch counts read
-    around it; returns (launches, stats, seconds)."""
+def _refine_on_card(gfa, out, label, route, extra=()):
+    """One ``cli refine`` run on the card (its default route) with the
+    launch counts set to 0 just before it and read just after; checks
+    them against the bubbles' shapes.  Returns (launches, stats,
+    seconds)."""
     import torch
 
     from reveal_tpu_torch import cli
+    from reveal_tpu_torch.hmm import mea_score
     from reveal_tpu_torch.hmm import pairhmm_dp as dp
     from reveal_tpu_torch.hmm import refine
 
     torch.cuda.reset_peak_memory_stats()
     dp.LAUNCHES["fwd"] = dp.LAUNCHES["bwd"] = 0
-    t0 = time.perf_counter()
-    cli.main(["refine", gfa, "--all", "--minsize", "2", "--maxsize",
-              "10000", "--device", "cuda", "-o", out])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = dict(dp.LAUNCHES)
+    mea_score.LAUNCHES = 0
+    with _GcClock() as gc_clock:
+        t0 = time.perf_counter()
+        cli.main(["refine", gfa, "--all", "--minsize", "2", "--maxsize",
+                  "10000", "--device", "cuda", "-o", out, *extra])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(dp.LAUNCHES, mea=mea_score.LAUNCHES)
     st = dict(refine.LAST_STATS)
-    want = _expected_batches(st["pair_shapes"])
-    if not (launches["fwd"] == launches["bwd"] == want and want > 0):
+    _check_refine_stats(st, launches, label, route)
+    print("%s: %d bubbles (%d on the chain, %d two-phase), %d pairs, %d "
+          "posterior cells; launches: forward %d = backward %d, mea_score "
+          "%d (chain chunks %d, chain DP batches %d, two-phase batches "
+          "%d); extract %.6f s, stage 1+2 on the card (chain) %.6f s, "
+          "two-phase stage 1 on the card %.6f s, host MSA %.6f s, splice "
+          "%.6f s, end to end (GFA -> GFA, CLI in-process) %.6f s; peak "
+          "device memory %.6f GB"
+          % (label, st["bubbles"], st["chain_bubbles"],
+             st["bubbles"] - st["chain_bubbles"], st["pairs"], st["cells"],
+             launches["fwd"], launches["bwd"], launches["mea"],
+             st["chain_batches"], st["chain_dp_batches"],
+             _expected_batches(st)[0], st["extract_seconds"],
+             st["chain_seconds"], st["stage1_seconds"], st["msa_seconds"],
+             st["splice_seconds"], secs,
+             torch.cuda.max_memory_allocated() / 1e9))
+    print("%s: Python's cyclic garbage collector during the run: %s"
+          % (label, gc_clock.text()))
+    return launches, st, secs
+
+
+class _GcClock:
+    """Seconds and count of the collections of Python's cyclic garbage
+    collector, by generation, inside a ``with`` block."""
+
+    def __init__(self):
+        self.secs = [0.0, 0.0, 0.0]
+        self.count = [0, 0, 0]
+        self._t = 0.0
+
+    def _on(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.secs[info["generation"]] += time.perf_counter() - self._t
+            self.count[info["generation"]] += 1
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._on)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on)
+
+    def text(self):
+        return ", ".join("generation %d: %d collections, %.6f s"
+                         % (g, self.count[g], self.secs[g]) for g in range(3))
+
+
+def _check_refine_stats(st, launches, label, route):
+    """The route taken, every bubble refined and aligned, and the launch
+    counts the bubbles' shapes ask for: forward = backward = the chain's
+    DP batches and the two-phase batches, one MEA-score launch a chain
+    chunk and a two-phase batch."""
+    two, chunks, chain_dp = _expected_batches(st)
+    if st["route"] != route:
+        raise AssertionError("%s: route %s, expected %s"
+                             % (label, st["route"], route))
+    if (chunks, chain_dp) != (st["chain_batches"], st["chain_dp_batches"]):
         raise AssertionError(
-            "%s: %d forward and %d backward launches for %d batches"
-            % (label, launches["fwd"], launches["bwd"], want))
+            "%s: %d chain chunks and %d DP batches, reckoned %d and %d"
+            % (label, st["chain_batches"], st["chain_dp_batches"], chunks,
+               chain_dp))
+    want = two + chain_dp
+    if not (launches["fwd"] == launches["bwd"] == want and want > 0
+            and launches["mea"] == two + chunks):
+        raise AssertionError(
+            "%s: %d forward, %d backward and %d mea_score launches for %d "
+            "DP batches and %d chain chunks"
+            % (label, launches["fwd"], launches["bwd"], launches["mea"],
+               want, chunks))
     if st["refined"] != st["bubbles"] or not st["pairs"] > 0:
         raise AssertionError("%s: refine stats %r"
                              % (label, {k: v for k, v in st.items()
@@ -1012,22 +1298,165 @@ def _refine_on_card(gfa, out, label):
         raise AssertionError("%s: %d of %d refined bubbles are marked "
                              "aligned" % (label, st["aligned_bubbles"],
                                           st["bubbles"]))
-    print("%s: %d bubbles, %d pairs, %d posterior cells, %d batches "
-          "(forward = backward launches); extract %.6f s, stage 1 on the "
-          "card %.6f s (%.6f Mcells/s), host MSA %.6f s, splice %.6f s, "
-          "end to end (GFA -> GFA, CLI in-process) %.6f s; peak device "
-          "memory %.6f GB"
-          % (label, st["bubbles"], st["pairs"], st["cells"], want,
-             st["extract_seconds"], st["stage1_seconds"],
-             st["cells"] / 1e6 / max(st["stage1_seconds"], 1e-9),
-             st["msa_seconds"], st["splice_seconds"], secs,
-             torch.cuda.max_memory_allocated() / 1e9))
-    return launches, st, secs
+
+
+class _ChainWatch:
+    """Hooks around the chain or a refine run: the chain's MEA-score
+    inputs and outputs (``msa.mea_score``, kept on the card), and, with
+    ``against`` (one mats dict a bubble, in bubble order), every bubble's
+    transformed matrices as the host MSA receives them
+    (``msa._refine_stage``) held against those."""
+
+    def __init__(self, against=None):
+        self.scans = []
+        self.against = against
+        self.delta = 0.0
+        self.one_sided = 0
+        self.calls = 0
+
+    def __enter__(self):
+        from reveal_tpu_torch.hmm import msa
+
+        self._mea, self._stage = msa.mea_score, msa._refine_stage
+
+        def mea(p, nrows=None):
+            out = self._mea(p, nrows)
+            self.scans.append((p.clone(), nrows, out.clone()))
+            return out
+
+        def stage(aln, masks, mats, N):
+            if self.against is not None:
+                self._compare(self.against[self.calls], mats)
+            self.calls += 1
+            return self._stage(aln, masks, mats, N)
+
+        msa.mea_score, msa._refine_stage = mea, stage
+        return self
+
+    def __exit__(self, *exc):
+        from reveal_tpu_torch.hmm import msa
+
+        msa.mea_score, msa._refine_stage = self._mea, self._stage
+
+    def _compare(self, ref, mats):
+        import numpy as np
+
+        gate = 5e-3
+        for k, a in ref.items():
+            b = np.asarray(mats[k])
+            if a.shape != b.shape:
+                raise AssertionError("transformed matrix %r: %s against %s"
+                                     % (k, a.shape, b.shape))
+            one = (a == 0) != (b == 0)
+            at_cut = one & (np.maximum(a, b) < 0.01 + gate)
+            d = np.abs(a - b)
+            d[at_cut] = 0.0
+            self.one_sided += int(at_cut.sum())
+            self.delta = max(self.delta, float(d.max(initial=0.0)))
+            if self.delta > gate:
+                raise AssertionError(
+                    "transformed matrices of the two routes differ by %g "
+                    "(gate %g)" % (self.delta, gate))
+
+
+def chain_split(problems):
+    """The chain of ``refine``'s bubbles once more
+    (``msa.batch_stage12_device`` as refine_all calls it), with a
+    synchronised host clock around its steps.  Prints seconds per step;
+    returns its output."""
+    import torch
+
+    from reveal_tpu_torch.hmm import msa
+
+    steps = ("_posteriors_device", "mea_score", "consistency_rounds",
+             "_fetch_pairs", "compact_rows")
+    secs = dict.fromkeys(steps, 0.0)
+    originals = {name: getattr(msa, name) for name in steps}
+
+    def clocked(name):
+        fn = originals[name]
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            return res
+        return run
+
+    for name in steps:
+        setattr(msa, name, clocked(name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = msa.batch_stage12_device(
+            problems, consistency=REFINE_KW["constrans"],
+            consgap=REFINE_KW["consgap"], device="cuda")
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(msa, name, fn)
+    top = sum(secs[n] for n in steps[:4])
+    print("chain of refine's bubbles again, step by step (synchronised host "
+          "clock): pack, copy in and the DP kernels (posteriors) %.6f s, "
+          "MEA-score kernel %.6f s, relaxation rounds %.6f s, the a<b "
+          "blocks to the host %.6f s (of which top-K and copy %.6f s, the "
+          "rest the host's densifying), the rest (bucketing, cut, the "
+          "tensor Q, scores, distances) %.6f s; %.6f s in all"
+          % (secs["_posteriors_device"], secs["mea_score"],
+             secs["consistency_rounds"], secs["_fetch_pairs"],
+             secs["compact_rows"], total - top, total))
+    return out
+
+
+def check_chain_scans(scans):
+    """The MEA-score kernel on the chain's own posteriors: each launch of
+    the run equals the plain loop bit for bit, and every pair's score
+    equals the host MEA DP (``msa._mea_dp_fast``) of its dense posterior
+    to 1e-6 relative.  Returns {(B, L1p, L2p): (p, nrows, launches)},
+    the last launch's input of each shape kept for timing."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch.hmm import mea_score as ms
+    from reveal_tpu_torch.hmm import msa
+
+    shapes = {}
+    worst = 0.0
+    pairs = 0
+    for p, nrows, got in scans:
+        ref = ms.mea_score_plain(p, nrows)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                "mea_score on the chain's posteriors %s differs from plain "
+                "by %g" % (tuple(p.shape), float((got - ref).abs().max())))
+        host = p.cpu().numpy()
+        for k in range(host.shape[0]):
+            want = msa._mea_dp_fast(host[k])[1]
+            rel = abs(float(got[k]) - want) / max(1.0, abs(want))
+            worst = max(worst, rel)
+            if rel > 1e-6:
+                raise AssertionError("chain MEA score %g, host MEA DP of "
+                                     "the same posterior %g"
+                                     % (float(got[k]), want))
+        pairs += host.shape[0]
+        key = tuple(p.shape)
+        shapes[key] = (p, nrows, shapes.get(key, (0, 0, 0))[2] + 1)
+    print("chain: mea_score equal to plain on all %d launches (%d pairs) "
+          "of the chain run again; MEA scores against the host MEA DP of the "
+          "card's own dense posteriors: %.3e relative (limit 1e-6); shapes "
+          "%s" % (len(scans), pairs, worst,
+                  ", ".join("%d x %d x %d (%d launches)" % (*k, v[2])
+                            for k, v in shapes.items())))
+    return shapes
 
 
 def run_refine(seed, workdir):
-    """The refine path at a real size, then the native float64 route for
-    stage 1 on the same GFA."""
+    """The refine path at a real size on the chain; its chain once more,
+    step by step, with every MEA-score launch checked; the two-phase route
+    on the card for the same graph; the native float64 route for stage 1
+    on a smaller graph."""
     from reveal_tpu_torch.core.io_gfa import read_gfa
     from reveal_tpu_torch.hmm import refine
 
@@ -1035,27 +1464,100 @@ def run_refine(seed, workdir):
     bubbles = []
     want = write_bubble_chain(gfa, seed, bubbles=bubbles)
     out = os.path.join(workdir, "bubbles.refined.gfa")
-    launches, st, _secs = _refine_on_card(gfa, out, "refine")
+    launches, st, secs = _refine_on_card(gfa, out, "refine", "chain")
     if (st["bubbles"] != 72 or st["pairs"] != 72 * 15
-            or st["cells"] < 200_000_000):
-        raise AssertionError("refine: %d bubbles, %d pairs, %d cells"
-                             % (st["bubbles"], st["pairs"], st["cells"]))
+            or st["cells"] < REFINE_MIN_CELLS or st["chain_bubbles"] != 72):
+        raise AssertionError("refine: %d bubbles (%d on the chain), %d "
+                             "pairs, %d cells"
+                             % (st["bubbles"], st["chain_bubbles"],
+                                st["pairs"], st["cells"]))
     _check_paths(out, want)
-    print("refine: every path of the refined GFA spells its input")
+    print("refine: every path of the refined GFA spells its input; chain "
+          "shapes (N, Lq): %s" % sorted(st["chain_shapes"].items()))
+    with _ChainWatch() as watch:
+        chain = chain_split(bubbles)
+    shapes = check_chain_scans(watch.scans)
+    del watch
 
-    t0 = time.perf_counter()
-    refine.refine_all(read_gfa(gfa), stage1="native", **REFINE_KW)
-    nat = dict(refine.LAST_STATS)
-    differ = sum(a != b for a, b in zip(st["digests"], nat["digests"]))
-    if len(st["digests"]) != len(nat["digests"]):
+    # the two-phase route on the card, its matrices held against the
+    # chain's bubble by bubble
+    import torch
+
+    with _ChainWatch(against=[mats for mats, _dist in chain]) as two, \
+            _GcClock() as gc_two:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        refine.refine_all(read_gfa(gfa), device="cuda", route="two-phase",
+                          **REFINE_KW)
+        secs2 = time.perf_counter() - t0
+    del chain
+    st2 = dict(refine.LAST_STATS)
+    differ = sum(a != b for a, b in zip(st["digests"], st2["digests"]))
+    if len(st2["digests"]) != len(st["digests"]) or two.calls != 72:
         raise AssertionError("the two routes refined %d and %d bubbles"
-                             % (len(st["digests"]), len(nat["digests"])))
-    print("refine, stage 1 by the native float64 host pair-HMM instead: "
-          "%d of %d bubbles' refined subgraphs differ from the card's; "
-          "stage 1 %.6f s on the host, whole run %.6f s"
-          % (differ, len(nat["digests"]), nat["stage1_seconds"],
-             time.perf_counter() - t0))
-    return launches, stage1_split(bubbles, st)
+                             % (len(st["digests"]), len(st2["digests"])))
+    print("refine, the two-phase route on the card for the same graph: %d "
+          "of %d bubbles' refined subgraphs differ from the chain's; "
+          "transformed matrices within %.3e of the chain's (gate 5e-3; %d "
+          "cells within the gate of the 0.01 cut kept on one side only); "
+          "stage 1 %.6f s, host MSA %.6f s, splice %.6f s, end to end %.6f "
+          "s, peak device memory %.6f GB"
+          % (differ, len(st2["digests"]), two.delta, two.one_sided,
+             st2["stage1_seconds"], st2["msa_seconds"],
+             st2["splice_seconds"], secs2,
+             torch.cuda.max_memory_allocated() / 1e9))
+    print("refine, the two-phase route: Python's cyclic garbage collector "
+          "during the run: %s" % gc_two.text())
+    split = stage1_split(bubbles, st2)
+
+    # the native float64 stage 1 against the card's, on 13 bubbles
+    small = os.path.join(workdir, "bubbles13.gfa")
+    write_bubble_chain(small, seed + 1, n_small=12, n_big=1)
+    refine.refine_all(read_gfa(small), device="cuda", route="two-phase",
+                      **REFINE_KW)
+    card = dict(refine.LAST_STATS)
+    t0 = time.perf_counter()
+    refine.refine_all(read_gfa(small), stage1="native", **REFINE_KW)
+    nat = dict(refine.LAST_STATS)
+    if len(card["digests"]) != len(nat["digests"]) or not card["digests"]:
+        raise AssertionError("the two stage-1 routes refined %d and %d "
+                             "bubbles" % (len(card["digests"]),
+                                          len(nat["digests"])))
+    print("refine, 13 bubbles (12 near 500 bp, 1 near 1900 bp) on the "
+          "two-phase route, stage 1 by the native float64 host pair-HMM "
+          "instead of the card: %d of %d bubbles' refined subgraphs differ; "
+          "stage 1 %.6f s on the host (card %.6f s), whole run %.6f s"
+          % (sum(a != b for a, b in zip(card["digests"], nat["digests"])),
+             len(nat["digests"]), nat["stage1_seconds"],
+             card["stage1_seconds"], time.perf_counter() - t0))
+    return launches, split, shapes
+
+
+def run_mixed(seed, workdir):
+    """A graph with one six-path bubble of about 4 kbp alleles (its chain
+    tensor over CHAIN_BYTES_CAP) and four near 500 bp: the chain for
+    four, the two-phase route for one, in one run."""
+    from reveal_tpu_torch.hmm import msa
+
+    gfa = os.path.join(workdir, "mixed.gfa")
+    bubbles = []
+    want = write_bubble_chain(gfa, seed + 2, n_small=4, small=500, n_big=1,
+                              big=4000, bubbles=bubbles)
+    big = max(bubbles, key=lambda al: max(map(len, al)))
+    Lq = msa._bucket_len(max(map(len, big)) + 1)
+    if 36 * Lq * Lq * 4 <= msa.CHAIN_BYTES_CAP:
+        raise AssertionError("the big bubble (Lq %d) fits under the cap"
+                             % Lq)
+    out = os.path.join(workdir, "mixed.refined.gfa")
+    _l, st, _secs = _refine_on_card(gfa, out, "refine, mixed graph",
+                                    "chain", ("--nrefinements", "10"))
+    if (st["bubbles"], st["chain_bubbles"]) != (5, 4):
+        raise AssertionError("mixed graph: %d bubbles, %d on the chain"
+                             % (st["bubbles"], st["chain_bubbles"]))
+    _check_paths(out, want)
+    print("refine, mixed graph: the 4 bubbles near 500 bp on the chain, the "
+          "one of Lq %d (%.3f GB as a chain tensor) on the two-phase "
+          "route; every path spells its input" % (Lq, 36 * Lq * Lq * 4e-9))
 
 
 def stage1_split(bubbles, st):
@@ -1162,7 +1664,10 @@ def run_rem_then_refine(rem_gfa, workdir, t_rem):
     G = read_gfa(rem_gfa)
     want = {name: extract(G, name) for name in G.graph["paths"]}
     out = os.path.join(workdir, "port.refined.gfa")
-    _l, _st, secs = _refine_on_card(rem_gfa, out, "rem then refine")
+    _l, st, secs = _refine_on_card(rem_gfa, out, "rem then refine", "chain")
+    if st["chain_bubbles"] != st["bubbles"]:
+        raise AssertionError("rem then refine: %d of %d bubbles on the "
+                             "chain" % (st["chain_bubbles"], st["bubbles"]))
     _check_paths(out, want)
     print("rem then refine: paths round-trip; rem %.6f s + refine %.6f s"
           % (t_rem, secs))
@@ -1249,27 +1754,43 @@ def main(argv=None):
             return
         rows = [check_window_resolve(dev)] + check_pairhmm(dev)
         rows.append(check_repair(fastas, wd))
+        rows.append(check_mea_score(dev))
         check_against_native(dev, args.seed)
         if args.only == "kernels":
             print("chip_smoke --only kernels: phases 1-4 passed")
             return
         rem_launches, rem_gfa, t_rem = run_rem(fastas, total_bp, wd)
         profile_forest(fastas, total_bp, wd, "this checkout:")
-        dp_launches, dp_batches = run_refine(args.seed, wd)
+        launches, two_phase_batches, scans = run_refine(args.seed, wd)
+        main_scans = [dict(time_mea(p, nrows, 10), launches=n)
+                      for p, nrows, n in scans.values()]
+        del scans
+        relax = time_relaxation(dev)
+        run_mixed(args.seed, wd)
         run_rem_then_refine(rem_gfa, wd, t_rem)
     # window-resolve is off the rem path since the repair pass became one
     # kernel (run_rem checked that it launched 0 times there)
     rows[0]["launches"] = 0
     rows[0]["main_path"] = ("none: rem's repair passes run "
                             "csrc/repair_pass.cu, which searches itself")
-    rows[1]["launches"] = dp_launches["fwd"]
-    rows[2]["launches"] = dp_launches["bwd"]
+    # the main path of this slice: refine on the chain (72 bubbles)
+    rows[1]["launches"] = launches["fwd"]
+    rows[2]["launches"] = launches["bwd"]
     rows[3]["launches"] = rem_launches
+    rows[4]["launches"] = launches["mea"]
     for key, row in (("fwd_ms", rows[1]), ("bwd_ms", rows[2])):
-        # what the main path launched: batch, plan and time a launch
-        row["main_path_batches"] = [
+        # what the two-phase route launched: batch, plan and time a launch
+        row["two_phase_batches"] = [
             {"batch": b["batch"], "launches": b["launches"],
-             "plan": b["plan"], "ms": b[key]} for b in dp_batches]
+             "plan": b["plan"], "ms": b[key]} for b in two_phase_batches]
+    # the MEA scan on the chain's own posteriors, at the shape most of
+    # its launches take
+    main = max(main_scans, key=lambda t: t["launches"])
+    rows[4].update({k: main[k] for k in ("shape", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "bound_latency_ms")})
+    rows[4]["main_path_shapes"] = main_scans
+    rows[4]["relaxation_products"] = relax
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "reveal_tpu")]
     if loaded:

@@ -11,8 +11,12 @@ card that is an error, never a quiet switch to the CPU).  The GFA and
 the identity log line are those of ``python -m reveal_tpu.cli rem``.
 
 ``refine`` (alias ``realign``) realigns bubbles with the pair-HMM
-consistency MSA; the pair posteriors of all bubbles run on ``--device``.
-Its options and its output are those of ``python -m reveal_tpu.cli
+consistency MSA.  On a card (``--device cuda``) the posteriors, MEA
+distances and consistency transform of every bubble under the chain's
+size cap run on the card and the rest of the MSA on the host; a bubble
+over the cap, and every bubble on ``--device cpu``, has its posteriors
+computed on the device and its consistency transform on the host.  Its
+options and its output are those of ``python -m reveal_tpu.cli
 refine``.
 """
 
@@ -170,8 +174,8 @@ def build_parser():
         p2.add_argument("graph", nargs=1)
         p2.add_argument(
             "--device", default="cuda",
-            help="Torch device of the pair posteriors: cuda (default) or "
-            "cpu.",
+            help="Torch device of the pair posteriors and, on cuda, of the "
+            "consistency transform: cuda (default) or cpu.",
         )
         p2.add_argument("--all", action="store_true")
         p2.add_argument("--complex", action="store_true")

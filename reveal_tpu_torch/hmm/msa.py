@@ -10,7 +10,7 @@ reference's probconslib (DoAlign, probcons/Probcons.cc:312-544):
    P' = (2P_xy + sum_z P_xz P_zy)/N (DoRelaxation, Probcons.cc:1135-1248;
    gap-aware variant Relax_gap adds the p_gap outer product,
    Probcons.cc:1291-1353), masked to the previous sparsity pattern and
-   re-cut, in float64 on the host;
+   re-cut;
 3. expected-accuracy guide tree (EvolutionaryTree.h:104-160);
 4. progressive alignment: BuildPosterior sum over mapped sparse cells +
    maximum-expected-accuracy DP with D>=L>=U tie-breaking
@@ -21,17 +21,32 @@ reference's probconslib (DoAlign, probcons/Probcons.cc:312-544):
 6. per-column confidence annotation = 200 * mean pairwise posterior
    (ComputeAnnotation/ComputeScore, Probcons.cc:1545-1602).
 
-Stage 1 runs on the torch device given (``batch_posteriors_cut``): the
-forward and backward DP as CUDA kernels on a card, their plain torch
-versions on the CPU, the same code around them.  Stages 2-6 are the
-reference's host code, copied.  The reference's device consistency
-transform and its fused stage-1+2 chain are not ported yet, and neither
-are its small-workload routes to the native host pair-HMM: every pair of
-every bubble goes through ``batch_posteriors_cut`` on the device given.
-``batch_posteriors_cut_native`` is the float64-exact native host route
-for stage 1; it is a reference to hold the device against, chosen by the
-caller by name, never a fallback.  Alignment strings use '-' for gaps
-like the reference.
+Stages 1 and 2 run on the torch device given, by either of two routes.
+``batch_stage12_device`` is the chain: posteriors (the DP kernels at
+square (Lq, Lq) buckets), MEA distances (``mea_score``), the cut and the
+relaxation rounds (``consistency_rounds``, float32 products) all stay on
+the device, and only the transformed a<b matrices and the scores reach
+the host; a problem whose (N, N, Lq, Lq) tensor exceeds
+``CHAIN_BYTES_CAP`` comes back ``None``.  ``batch_posteriors_cut`` is
+stage 1 alone (cut posteriors and scores), after which
+``probcons_align`` runs stage 2 on the host in float64 (dense, or scipy
+sparse for long pairs).  ``batch_consistency`` runs stage 2 on the device
+for posteriors the caller has.  On the CPU the DP kernels and the MEA
+scan are their plain torch versions; the same code surrounds them.
+
+Left out of the reference's chain: the power-of-two padding of a batch
+(it bounded XLA's compile cache; torch compiles nothing per shape), the
+thread pool over chunks (it overlapped a remote device link's executable
+loads) and the choice between the Pallas kernels and the XLA row-scan
+by backend (the port has one DP, kernels on a card and their plain
+versions on the CPU); its ``except`` that turned a failed chunk into
+``None`` is not carried: a failure raises.  The bf16 option of the
+consistency products (``REVEAL_TPU_CONS_BF16``) is not ported.  The
+reference's small-workload routes to the native host pair-HMM are not
+ported either.  ``batch_posteriors_cut_native`` is the float64-exact
+native host route for stage 1; it is a reference to hold the device
+against, chosen by the caller by name, never a fallback.  Alignment
+strings use '-' for gaps like the reference.
 """
 
 from __future__ import annotations
@@ -41,10 +56,20 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
 from .. import _not_covered
 from ..core.torchconfig import resolve_device
-from .pairhmm import POSTERIOR_CUTOFF, fetch_posteriors_compact
-from .pairhmm_dp import batch_posteriors_dp, batches, posterior_batch
+from .mea_score import mea_score
+from .pairhmm import POSTERIOR_CUTOFF, compact_rows, fetch_posteriors_compact
+from .pairhmm_dp import (
+    _ceil_div,
+    batch_posteriors_dp,
+    batch_size,
+    batches,
+    pack,
+    posterior_batch,
+)
 
 log = logging.getLogger(__name__)
 
@@ -197,6 +222,269 @@ def _sparsify(p: np.ndarray) -> np.ndarray:
     q[0, :] = 0
     q[:, 0] = 0
     return q
+
+
+# Single-problem footprint cap for the device stage-1+2 chain (the
+# reference's, reveal_tpu/hmm/msa.py:309-313): a problem whose (N, N, Lq,
+# Lq) float32 tensor is larger takes the two-phase route (stage 1 on the
+# device, stage 2 on the host).  The relaxation rounds keep about 2.7
+# such tensors live (``consistency_rounds``).
+CHAIN_BYTES_CAP = 1 << 31
+# bytes of the (B, N, N, Lq, Lq) tensor of one chunk of a bucket
+CHUNK_BYTES = 1 << 28
+# the transformed matrices of a chunk come back dense below this width
+# and as per-row top-K above it (reveal_tpu/hmm/pairhmm.py:683-714)
+SPARSE_TRANSFER_MIN_WIDTH = 513
+
+
+def _bucket_len(x: int) -> int:
+    """Pow2 tiers up to 2048, then multiples of 512: above 2k the pow2
+    jump (e.g. 4.7k -> 8192) inflates the (N, N, Lq, Lq) chain tensor
+    ~3x and pushes real bubbles past CHAIN_BYTES_CAP onto the slow
+    host path; big bubbles are rare, so the extra shape signatures
+    don't multiply executable loads in practice."""
+    b = 32
+    while b < x and b < 2048:
+        b *= 2
+    if b >= x:
+        return b
+    return ((x + 511) // 512) * 512
+
+
+def _pair_index(N, device):
+    """(a, b) index tensors of the a<b pairs of N sequences, in
+    probcons_align's pair order."""
+    keys = [(a, b) for a in range(N) for b in range(a + 1, N)]
+    return (torch.tensor([a for a, _ in keys], device=device),
+            torch.tensor([b for _, b in keys], device=device))
+
+
+def consistency_rounds(Q: torch.Tensor, rounds: int, consgap: bool):
+    """``rounds`` relaxation rounds of a batch of problems, in place.
+
+    Q: (B, N, N, Lq, Lq) float32, block (a, b) the sparsified posterior
+    of sequences a and b (zero-padded), block (b, a) its transpose, the
+    diagonal blocks the identity: the tensor of the reference's
+    ``_get_cons_fn`` (reveal_tpu/hmm/msa.py:336-381), whose einsum sums
+    Q[a, z] @ Q[z, b] over every z.  Its terms z = a and z = b are I @ P
+    and P @ I, which are P exactly, and block (b, a) is the transpose of
+    block (a, b); so a round here computes, for the a<b blocks only,
+
+        acc = (2 P_ab + sum over z not in {a, b} of P_az @ P_zb) / N
+
+    (with ``consgap`` each z also adds the outer product of P_az's row
+    gaps and P_zb's column gaps; the diagonal blocks' gaps are 0), z in
+    ascending order as the host loop of ``probcons_align`` sums them:
+    N(N-1)/2 (N-2) float32 products a round instead of N^3 (60 instead
+    of 216 at N = 6).  Then the reference's mask (Q > 0) & (acc >=
+    POSTERIOR_CUTOFF) and the block (b, a) written as the transpose; the
+    diagonal blocks are never written.  The products are ``torch`` batched
+    matrix products in float32 with TF32 off (``configure_torch``), as
+    the reference left its einsum to XLA."""
+    B, N, _, L, _ = Q.shape
+    ai, bi = _pair_index(N, Q.device)
+    npairs = ai.numel()
+    others = [[z for z in range(N) if z not in (a, b)]
+              for a, b in zip(ai.tolist(), bi.tolist())]
+    zs = [torch.tensor([o[k] for o in others], device=Q.device)
+          for k in range(N - 2)]
+    for _ in range(rounds):
+        P = Q[:, ai, bi]
+        acc = P * 2.0
+        flat = acc.view(B * npairs, L, L)
+        if consgap:
+            gx = 1.0 - Q.sum(dim=-1)  # row gaps of every block
+            gy = 1.0 - Q.sum(dim=-2)  # column gaps
+        for z in zs:
+            flat.baddbmm_(Q[:, ai, z].reshape(-1, L, L),
+                          Q[:, z, bi].reshape(-1, L, L))
+            if consgap:
+                flat.baddbmm_(gx[:, ai, z].reshape(-1, L, 1),
+                              gy[:, z, bi].reshape(-1, 1, L))
+        acc /= N
+        new = torch.where((P > 0) & (acc >= POSTERIOR_CUTOFF), acc,
+                          torch.zeros((), dtype=acc.dtype, device=Q.device))
+        Q[:, ai, bi] = new
+        Q[:, bi, ai] = new.transpose(-1, -2)
+    return Q
+
+
+def _chunks(idxs, N, Lq):
+    """A bucket's problems cut so that one chunk's (B, N, N, Lq, Lq)
+    tensor holds at most CHUNK_BYTES."""
+    maxb = max(1, CHUNK_BYTES // max(1, N * N * Lq * Lq * 4))
+    return [idxs[lo: lo + maxb] for lo in range(0, len(idxs), maxb)]
+
+
+def _fetch_pairs(Q: torch.Tensor, seqs_list):
+    """The a<b blocks of Q (B, N, N, Lq, Lq) as one mats dict a problem
+    ((a, b) -> float32 array of (len(a) + 1, len(b) + 1)): the whole
+    blocks below SPARSE_TRANSFER_MIN_WIDTH, above it their nonzero cells
+    as per-row top-K (``pairhmm.compact_rows``; the relaxation's mask
+    only shrinks the cut's pattern, so a row keeps at most 100 cells)."""
+    B, N, _, Lq, _ = Q.shape
+    ai, bi = _pair_index(N, Q.device)
+    Qp = Q[:, ai, bi]
+    keys = list(zip(ai.tolist(), bi.tolist()))
+    if Lq < SPARSE_TRANSFER_MIN_WIDTH:
+        dense = Qp.cpu().numpy()
+
+        def block(b, k, la, lb):
+            return dense[b, k, : la + 1, : lb + 1]
+    else:
+        cnt = (Qp > 0).sum(-1, dtype=torch.int32)
+        v, i = compact_rows(Qp, cnt)
+        cnt = cnt.cpu().numpy()
+
+        def block(b, k, la, lb):
+            return SparsePost(v[b, k, : la + 1], i[b, k, : la + 1],
+                              cnt[b, k, : la + 1], (la + 1, lb + 1)).dense()
+    return [
+        {(a, b): block(bi_, k, len(seqs[a]), len(seqs[b]))
+         for k, (a, b) in enumerate(keys)}
+        for bi_, seqs in enumerate(seqs_list)
+    ]
+
+
+def batch_consistency(problems, consistency=2, consgap=False,
+                      device="cuda"):
+    """Stage 2 on ``device`` across many MSA problems.
+
+    problems: list of (seqs, res) with res = [(posterior, total), ...]
+    dense posteriors over the a<b pair list of seqs.  Returns one mats
+    dict per problem ((a, b) -> sparsified float32 matrix), equal to
+    probcons_align's host stage 2 up to float32 rounding, or ``None`` for
+    a problem over CHAIN_BYTES_CAP.  Problems are bucketed by (N, padded
+    L) and run a chunk at a time (reveal_tpu/hmm/msa.py:384-447)."""
+    dev = resolve_device(device)
+    out = [None] * len(problems)
+    buckets = {}
+    for pi, (seqs, res) in enumerate(problems):
+        N = len(seqs)
+        Lp = _bucket_len(max(len(s) for s in seqs) + 1)
+        if N * N * Lp * Lp * 4 > CHAIN_BYTES_CAP:
+            continue  # out[pi] stays None: probcons_align's own stage 2
+        buckets.setdefault((N, Lp), []).append(pi)
+    for (N, Lp), idxs in sorted(buckets.items()):
+        for part in _chunks(idxs, N, Lp):
+            Q = np.zeros((len(part), N, N, Lp, Lp), dtype=np.float32)
+            Q[:, np.arange(N), np.arange(N)] = np.eye(Lp, dtype=np.float32)
+            for bi, pi in enumerate(part):
+                seqs, res = problems[pi]
+                k = 0
+                for a in range(N):
+                    for b in range(a + 1, N):
+                        sp = _sparsify(np.asarray(res[k][0]))
+                        k += 1
+                        Q[bi, a, b, : sp.shape[0], : sp.shape[1]] = sp
+                        Q[bi, b, a, : sp.shape[1], : sp.shape[0]] = sp.T
+            Qd = consistency_rounds(torch.from_numpy(Q).to(dev), consistency,
+                                    consgap)
+            for pi, mats in zip(part, _fetch_pairs(
+                    Qd, [problems[pi][0] for pi in part])):
+                out[pi] = mats
+    return out
+
+
+def _posteriors_device(pairs, Lq, dev):
+    """Dense posteriors (len(pairs), Lq, Lq) of string pairs shorter than
+    Lq, on ``dev``: ``pairhmm_dp.posterior_batch`` (zero outside 1..lx x
+    1..ly) in batches of ``pairhmm_dp.batch_size``.  Returns (posteriors,
+    batches)."""
+    mB = batch_size(Lq, Lq, dev.type)
+    if len(pairs) <= mB:
+        return posterior_batch(*pack(pairs, Lq, Lq, dev))[0], 1
+    out = torch.empty((len(pairs), Lq, Lq), dtype=torch.float32, device=dev)
+    for lo in range(0, len(pairs), mB):
+        part = pairs[lo: lo + mB]
+        out[lo: lo + len(part)] = posterior_batch(*pack(part, Lq, Lq, dev))[0]
+    return out, _ceil_div(len(pairs), mB)
+
+
+def _chain(p: torch.Tensor, B: int, N: int, nrows: int, rounds: int,
+           consgap: bool):
+    """Stage 1+2 of one chunk on the device from its dense posteriors p
+    (B * npairs, Lq, Lq), problem by problem and a<b pair by pair
+    (reveal_tpu/hmm/msa.py:576-652): the MEA scores of the full
+    posteriors over rows 1..nrows, then the cut at POSTERIOR_CUTOFF with
+    row and column 0 cleared (in place on p), the (B, N, N, Lq, Lq)
+    tensor and ``rounds`` relaxation rounds.  Returns (Q, scores (B,
+    npairs))."""
+    Lq = p.shape[-1]
+    scores = mea_score(p, nrows)
+    p.masked_fill_(p < POSTERIOR_CUTOFF, 0.0)
+    p[:, 0, :] = 0.0
+    p[:, :, 0] = 0.0
+    ai, bi = _pair_index(N, p.device)
+    P = p.view(B, ai.numel(), Lq, Lq)
+    Q = torch.zeros((B, N, N, Lq, Lq), dtype=torch.float32, device=p.device)
+    Q[:, ai, bi] = P
+    Q[:, bi, ai] = P.transpose(-1, -2)
+    d = torch.arange(N, device=p.device)
+    Q[:, d, d] = torch.eye(Lq, dtype=torch.float32, device=p.device)
+    del P
+    return consistency_rounds(Q, rounds, consgap), scores.view(B, -1)
+
+
+def batch_stage12_device(problems, consistency=2, consgap=False,
+                         device="cuda", stats=None):
+    """Device-resident ProbCons stages 1+2 across many MSA problems
+    (reveal_tpu/hmm/msa.py:655-765).
+
+    problems: list of seq-lists.  For each problem returns (mats, dist):
+    the consistency-transformed sparse matrices ((a, b) -> float32 array
+    of (len(a) + 1, len(b) + 1)) and the expected-accuracy distance
+    matrix (N, N) for the guide tree, or ``None`` for a problem whose
+    (N, N, Lq, Lq) chain tensor exceeds CHAIN_BYTES_CAP.  Posteriors never
+    leave the device; the transformed matrices come back through
+    ``_fetch_pairs``.  Problems are bucketed by (N, Lq = _bucket_len of
+    the longest sequence + 1) and run a chunk at a time; a chunk's pairs
+    go through the DP in batches of ``pairhmm_dp.batch_size``.  ``stats``,
+    a dict, receives the chunks ("batches") and the DP batches
+    ("dp_batches") run and the problems of each (N, Lq) ("shapes")."""
+    dev = resolve_device(device)
+    out = [None] * len(problems)
+    buckets = {}
+    for pi, seqs in enumerate(problems):
+        N = len(seqs)
+        if N < 2:
+            out[pi] = ({}, np.zeros((N, N), dtype=np.float64))
+            continue
+        Lq = _bucket_len(max(len(s) for s in seqs) + 1)
+        if N * N * Lq * Lq * 4 > CHAIN_BYTES_CAP:
+            continue  # out[pi] stays None: the two-phase route
+        buckets.setdefault((N, Lq), []).append(pi)
+    chunks = dp_batches = 0
+    for (N, Lq), idxs in sorted(buckets.items()):
+        for part in _chunks(idxs, N, Lq):
+            seqs_list = [problems[pi] for pi in part]
+            pairs = [(seqs[a], seqs[b]) for seqs in seqs_list
+                     for a in range(N) for b in range(a + 1, N)]
+            p, nb = _posteriors_device(pairs, Lq, dev)
+            Q, scores = _chain(p, len(part), N,
+                               max(len(a) for a, _ in pairs), consistency,
+                               consgap)
+            del p
+            mats_list = _fetch_pairs(Q, seqs_list)
+            del Q
+            scores = scores.cpu().numpy()
+            for bi_, (pi, seqs, mats) in enumerate(
+                    zip(part, seqs_list, mats_list)):
+                dist = np.zeros((N, N), dtype=np.float64)
+                k = 0
+                for a in range(N):
+                    for b in range(a + 1, N):
+                        dist[a, b] = dist[b, a] = float(
+                            scores[bi_, k]
+                        ) / max(1, min(len(seqs[a]), len(seqs[b])))
+                        k += 1
+                out[pi] = (mats, dist)
+            chunks += 1
+            dp_batches += nb
+    if stats is not None:
+        stats.update(batches=chunks, dp_batches=dp_batches,
+                     shapes={k: len(v) for k, v in buckets.items()})
+    return out
 
 
 

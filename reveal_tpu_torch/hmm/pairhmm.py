@@ -30,6 +30,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .mea_score import mea_score
+
 LOG_ZERO = -2e20  # ScoreType.h:16
 
 # ---------------------------------------------------------------------------
@@ -220,9 +222,9 @@ def _bucket(n: int) -> int:
 # host.  K is the smallest step of the ladder 8 -> 32 -> 128 that holds
 # the fullest row (similar sequences rarely exceed 8 survivors per row).
 # The MEA distance score is computed from the FULL posterior by the
-# cummax row scan, bit-equal to the host _mea_dp_fast recurrence (one
-# float32 add and maxima per cell, in the same order), so nothing
-# downstream needs the dense matrix.
+# cummax row scan (``mea_score``: a CUDA kernel on the card), bit-equal to
+# the host _mea_dp_fast recurrence (one float32 add and maxima per cell),
+# so nothing downstream needs the dense matrix.
 CUT_LADDER = (8, 32, 128)
 POSTERIOR_CUTOFF = 0.01
 
@@ -231,34 +233,23 @@ def posterior_cut(p: torch.Tensor, nrows=None):
     """The >= 0.01 cut of a posterior batch ``p`` (B, L1p, L2p) with row
     and column 0 cleared: returns (q, cnt, scores) = the cut dense
     batch, the survivors per row (B, L1p) int32 and the MEA score of the
-    full posterior per pair (B,) float32.  ``nrows`` bounds the rows the
-    score scan walks (rows beyond every pair's length are zero and leave
-    the scan unchanged)."""
-    B, L1p, L2p = p.shape
+    full posterior per pair (B,) float32 (``mea_score``).  ``nrows``
+    bounds the rows the score scan walks (rows beyond every pair's length
+    are zero and leave the scan unchanged)."""
     m = p >= POSTERIOR_CUTOFF
     m[:, 0, :] = False
     m[:, :, 0] = False
     q = torch.where(m, p, torch.zeros((), dtype=p.dtype, device=p.device))
     cnt = m.sum(-1, dtype=torch.int32)
-    # MEA score: new[j] = max(c[j], new[j-1]) with
-    # c[j] = max(p[i, j] + old[j-1], old[j]) -> running max of c
-    old = torch.zeros((B, L2p), dtype=torch.float32, device=p.device)
-    zero = torch.zeros((B, 1), dtype=torch.float32, device=p.device)
-    last = L1p if nrows is None else min(L1p, int(nrows) + 1)
-    for r in range(1, last):
-        c = torch.maximum(p[:, r, 1:] + old[:, :-1], old[:, 1:])
-        old = torch.cat([zero, torch.cummax(c, dim=1).values], dim=1)
-    return q, cnt, old[:, -1]
+    return q, cnt, mea_score(p, nrows)
 
 
-def fetch_posteriors_compact(p: torch.Tensor, tot: torch.Tensor,
-                             nrows=None):
-    """Cutoff-sparsified posteriors and MEA scores as host numpy arrays,
-    compact form: (v, i, cnt, tot, scores) with v, i (B, L1p, K) the
-    per-row top-K values and columns.  The first cnt[b, r] entries of a
-    row are exactly the >= 0.01 survivors of ``msa._sparsify`` (row and
-    column 0 cleared)."""
-    q, cnt, scores = posterior_cut(p, nrows=nrows)
+def compact_rows(q: torch.Tensor, cnt: torch.Tensor):
+    """The nonzero cells of a cut batch ``q`` (B, L1p, L2p), ``cnt[b, r]``
+    of them in row r, as host numpy (v, i): per-row top-K values and
+    columns, K the smallest step of ``CUT_LADDER`` that holds the fullest
+    row.  The first cnt[b, r] entries of a row are its nonzero cells;
+    the slots beyond point at column 0."""
     most = int(cnt.max()) if cnt.numel() else 0
     K = next((k for k in CUT_LADDER if k >= most), CUT_LADDER[-1])
     if most > K:
@@ -273,9 +264,21 @@ def fetch_posteriors_compact(p: torch.Tensor, tot: torch.Tensor,
     keep = torch.arange(K, device=q.device) < cnt[..., None]
     i = torch.where(keep, i, torch.zeros((), dtype=i.dtype, device=q.device))
     i = i.to(torch.int16 if q.shape[-1] < 2**15 else torch.int32)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def fetch_posteriors_compact(p: torch.Tensor, tot: torch.Tensor,
+                             nrows=None):
+    """Cutoff-sparsified posteriors and MEA scores as host numpy arrays,
+    compact form: (v, i, cnt, tot, scores) with v, i (B, L1p, K) the
+    per-row top-K values and columns (``compact_rows``).  The first
+    cnt[b, r] entries of a row are exactly the >= 0.01 survivors of
+    ``msa._sparsify`` (row and column 0 cleared)."""
+    q, cnt, scores = posterior_cut(p, nrows=nrows)
+    v, i = compact_rows(q, cnt)
     return (
-        v.cpu().numpy(),
-        i.cpu().numpy(),
+        v,
+        i,
         cnt.cpu().numpy(),
         tot.cpu().numpy(),
         scores.cpu().numpy(),

@@ -523,6 +523,18 @@ def batch_size(L1p: int, L2p: int, device_type: str) -> int:
                       MAX_BATCH_CELLS[device_type] // (L1p * L2p)))
 
 
+def pack(pairs, L1p, L2p, device):
+    """(x, y, lx, ly) of string pairs padded to L1p x L2p (dummy at 0,
+    '~' beyond the sequence), as tensors on ``device``."""
+    dev = torch.device(device)
+    xb = np.stack([_pad_with_dummy(a.encode(), L1p - 1) for a, _ in pairs])
+    yb = np.stack([_pad_with_dummy(b.encode(), L2p - 1) for _, b in pairs])
+    lx = np.array([len(a) for a, _ in pairs], dtype=np.int32)
+    ly = np.array([len(b) for _, b in pairs], dtype=np.int32)
+    return (torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev),
+            torch.from_numpy(lx).to(dev), torch.from_numpy(ly).to(dev))
+
+
 def batches(pairs, device):
     """Yield (L1p, L2p, idxs, x, y, lx, ly) for every batch of ``pairs``:
     bucketed by padded shape, a bucket split so that one batch holds at
@@ -536,21 +548,8 @@ def batches(pairs, device):
         mB = batch_size(L1p, L2p, dev.type)
         for lo in range(0, len(idxs_all), mB):
             idxs = idxs_all[lo: lo + mB]
-            xb = np.stack(
-                [_pad_with_dummy(pairs[i][0].encode(), L1p - 1)
-                 for i in idxs]
-            )
-            yb = np.stack(
-                [_pad_with_dummy(pairs[i][1].encode(), L2p - 1)
-                 for i in idxs]
-            )
-            lx = np.array([len(pairs[i][0]) for i in idxs], dtype=np.int32)
-            ly = np.array([len(pairs[i][1]) for i in idxs], dtype=np.int32)
-            yield (
-                L1p, L2p, idxs,
-                torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev),
-                torch.from_numpy(lx).to(dev), torch.from_numpy(ly).to(dev),
-            )
+            yield (L1p, L2p, idxs,
+                   *pack([pairs[i] for i in idxs], L1p, L2p, dev))
 
 
 def batch_posteriors_dp(pairs, device, slice_output: bool = True,

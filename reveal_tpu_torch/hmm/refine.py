@@ -13,16 +13,21 @@ Counterpart of ``reveal_tpu/hmm/refine.py`` (port of reveal/refine.py):
 * ``replace_bubble``: splice the refined subgraph between source and sink
   (refine.py:90-147).
 
-This is the reference's two-phase route: the pair posteriors of all
-bubbles run as a few large batches on the torch device given
-(``msa.batch_posteriors_cut``: forward and backward DP, combine, cut and
-MEA score), then every bubble's MSA runs on the host with those
-posteriors (``msa.probcons_align``).  The reference's small-workload
-routes to the native host code, its device consistency transform and its
-fused stage-1+2 chain are not part of the port: on any device every pair
-of every bubble goes through ``batch_posteriors_cut``, and a kernel,
-build or launch failure raises.  External aligners and ``reveal_rem``
-(``--method``) are not ported and raise.
+``refine_all`` takes the reference's two routes.  On a CUDA device
+every bubble whose chain tensor fits under ``msa.CHAIN_BYTES_CAP`` goes
+through the fused stage-1+2 chain (``msa.batch_stage12_device``:
+posteriors, MEA distances and the consistency transform on the card),
+and the host runs only the rest of its MSA (``msa.probcons_align`` with
+``precomputed_mats`` and ``precomputed_dist``).  The bubbles over the cap,
+and on the CPU every bubble unless the caller names the chain
+(``route="chain"``), take the two-phase route: the pair posteriors run as
+a few large batches on the device (``msa.batch_posteriors_cut``), then
+each bubble's MSA, consistency transform included, runs on the host.  The
+reference's small-workload routes to the native host code and its full
+two-phase recompute when a bubble is over the cap are not part of the
+port, and a kernel, build or launch failure raises: only the size cap
+sends a bubble to the two-phase route.  External aligners and
+``reveal_rem`` (``--method``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import logging
 import time
 from collections import Counter
 from typing import Dict, Optional
+
+import torch
 
 from .. import _not_covered
 from .msa import probcons_align
@@ -42,8 +49,10 @@ from ..graph.pangraph import PanGraph
 log = logging.getLogger(__name__)
 
 # stats of the most recent refine_all call: bubbles, pairs, posterior
-# cells, the pairs per padded DP shape, a digest of every refined bubble's subgraph in splice order, and
-# the seconds of its stages
+# cells, the route, the bubbles the chain took and their (N, Lq) shapes,
+# its chunks and DP batches, the two-phase pairs per padded DP shape, a
+# digest of every refined bubble's subgraph in splice order, and the
+# seconds of its stages
 LAST_STATS = {}
 
 # (run_closure, jobs) installed right before a fork-based refine pool
@@ -80,6 +89,8 @@ def msa_to_graph(
     nrefinements: int = 100,
     precomputed=None,
     precomputed_scores=None,
+    precomputed_mats=None,
+    precomputed_dist=None,
     method: str = "reveal_probcons",
     parameters: str = "",
 ) -> Optional[PanGraph]:
@@ -106,6 +117,8 @@ def msa_to_graph(
         consgap=consgap,
         precomputed=precomputed,
         precomputed_scores=precomputed_scores,
+        precomputed_mats=precomputed_mats,
+        precomputed_dist=precomputed_dist,
     )
     seqs = [""] * len(aobjs)
     for name, seq in aln:
@@ -332,6 +345,8 @@ def refine_bubble(
     aobjs=None,
     precomputed=None,
     precomputed_scores=None,
+    precomputed_mats=None,
+    precomputed_dist=None,
     method: str = "reveal_probcons",
     parameters: str = "",
     minlength: int = 20,
@@ -355,6 +370,8 @@ def refine_bubble(
         nrefinements=nrefinements,
         precomputed=precomputed,
         precomputed_scores=precomputed_scores,
+        precomputed_mats=precomputed_mats,
+        precomputed_dist=precomputed_dist,
         method=method,
         parameters=parameters,
     )
@@ -523,12 +540,22 @@ def refine_all(
     checkpoint_meta: Optional[dict] = None,
     device="cuda",
     stage1: str = "device",
+    route: Optional[str] = None,
     **kwargs,
 ):
-    """refine.py:377-525.  ``device`` is the torch device of stage 1
-    (the pair posteriors of all bubbles); ``stage1="native"`` computes
-    them with the native float64 host pair-HMM instead, as a reference
-    for the device route.
+    """refine.py:377-525 with the routing of reveal_tpu/hmm/refine.py:
+    699-892.  ``device`` is the torch device of stages 1 and 2.
+
+    ``route`` "chain": every bubble under ``msa.CHAIN_BYTES_CAP`` takes
+    ``msa.batch_stage12_device`` (posteriors, MEA distances and the
+    consistency transform on the device), and only the bubbles it
+    returns ``None`` for take the two-phase route.  "two-phase": stage 1
+    of every bubble through ``msa.batch_posteriors_cut`` on the device,
+    stage 2 on the host in ``probcons_align``.  The default is the chain
+    on a CUDA device and the two-phase route elsewhere, as the reference
+    takes its chain on an accelerator only.  ``stage1="native"`` computes
+    stage 1 of the two-phase route with the native float64 host pair-HMM
+    instead, as a reference for the device.
 
     ``checkpoint`` logs every bubble's result as it completes
     (hmm/refinelog.py); a resumed run skips the logged bubbles' device
@@ -630,34 +657,83 @@ def refine_all(
         slots.append(("job", len(work)))
         work.append((bubble, sg, offsets, paths, aobjs))
 
-    from .msa import batch_posteriors_cut, batch_posteriors_cut_native
+    from .msa import (
+        batch_posteriors_cut,
+        batch_posteriors_cut_native,
+        batch_stage12_device,
+    )
 
     method = kwargs.get("method", "reveal_probcons")
     if method != "reveal_probcons":
         raise _not_covered(
             "--method %s (external aligners, reveal_rem)" % method, "3"
         )
+    if stage1 not in ("device", "native"):
+        raise ValueError("stage1 must be 'device' or 'native'")
+    if route is None:
+        route = ("chain" if stage1 == "device"
+                 and torch.device(device).type == "cuda" else "two-phase")
+    if route not in ("chain", "two-phase") or (
+            route == "chain" and stage1 != "device"):
+        raise ValueError("route must be 'chain' (with stage1='device') or "
+                         "'two-phase'")
     t_extract = time.time() - t_begin
 
-    # phase 1: stage 1 of every bubble's MSA in a few large batches on
-    # the device: cutoff survivors + MEA scores come back
-    # (msa.batch_posteriors_cut; SparseMatrix.h:14,54 semantics)
+    # phase 1 (chain): posterior -> distance -> consistency on the device
+    # for every bubble under msa.CHAIN_BYTES_CAP (msa.batch_stage12_device);
+    # only the transformed mats and the distances come back
     posteriors = []
     pair_scores = []
+    mats_for = [None] * len(work)
+    dist_for = [None] * len(work)
+    chain = {}
     t0 = time.time()
-    if all_pairs:
+    if all_pairs and route == "chain":
+        stage12 = batch_stage12_device(
+            [[sq for _n, sq in w[4]] for w in work],
+            consistency=kwargs.get("constrans", 2),
+            consgap=kwargs.get("consgap", True),
+            device=device,
+            stats=chain,
+        )
+        for i, md in enumerate(stage12):
+            if md is not None:
+                mats_for[i], dist_for[i] = md
+        log.info(
+            "device posterior+consistency chain for %d/%d bubbles in %.2fs",
+            sum(m is not None for m in mats_for),
+            len(work),
+            time.time() - t0,
+        )
+    t_chain = time.time() - t0
+
+    # phase 1 (two-phase): stage 1 of the remaining bubbles' MSAs in a
+    # few large batches on the device: cutoff survivors + MEA scores come
+    # back (msa.batch_posteriors_cut; SparseMatrix.h:14,54 semantics);
+    # probcons_align runs their stage 2 on the host
+    rem_idx = [i for i in range(len(work)) if mats_for[i] is None]
+    rem_pairs = []
+    for i in rem_idx:
+        s, e = pair_slices[i]
+        rem_pairs.extend(all_pairs[s:e])
+    t0 = time.time()
+    if rem_pairs:
         if stage1 == "native":
-            trip = batch_posteriors_cut_native(all_pairs)
-        elif stage1 == "device":
-            trip = batch_posteriors_cut(all_pairs, device=device)
+            trip = batch_posteriors_cut_native(rem_pairs)
         else:
-            raise ValueError("stage1 must be 'device' or 'native'")
-        posteriors = [(p, tot) for p, tot, _ in trip]
-        pair_scores = [s_ for _, _, s_ in trip]
+            trip = batch_posteriors_cut(rem_pairs, device=device)
+        posteriors = [None] * len(all_pairs)
+        pair_scores = [None] * len(all_pairs)
+        k = 0
+        for i in rem_idx:
+            s, e = pair_slices[i]
+            posteriors[s:e] = [(p, tot) for p, tot, _ in trip[k: k + e - s]]
+            pair_scores[s:e] = [s_ for _, _, s_ in trip[k: k + e - s]]
+            k += e - s
         log.info(
             "computed %d pair posteriors for %d bubbles in %.2fs",
-            len(all_pairs),
-            len(work),
+            len(rem_pairs),
+            len(rem_idx),
             time.time() - t0,
         )
     t_stage1 = time.time() - t0
@@ -668,10 +744,10 @@ def refine_all(
     # releases the GIL, so threads scale it — the reference used an mp
     # pool here, refine.py:459-525), then the graph splice serially in
     # input order so the result is identical to the sequential loop.
-    jobs = list(zip(work, pair_slices))
+    jobs = list(zip(work, pair_slices, mats_for, dist_for))
 
     def _run(job):
-        (bubble, sg, offsets, paths, aobjs), (s, e) = job
+        (bubble, sg, offsets, paths, aobjs), (s, e), pmats, pdist = job
         t0 = time.time()
         res = refine_bubble(
             sg,
@@ -683,6 +759,8 @@ def refine_all(
             precomputed_scores=(
                 pair_scores[s:e] if pair_scores else None
             ),
+            precomputed_mats=pmats,
+            precomputed_dist=pdist,
             minlength=minlength,
             **kwargs,
         )
@@ -704,7 +782,11 @@ def refine_all(
     # bubbles without precomputed stage-1/2 data compute posteriors on
     # the device inside refine_bubble — keep those serial (one device
     # client at a time); everything else is pure host work
-    parallel_ix = [i for i in range(len(jobs)) if posteriors]
+    parallel_ix = [
+        i
+        for i, (_w, _se, pm, _pd) in enumerate(jobs)
+        if pm is not None or posteriors
+    ]
     results = [None] * len(jobs)
 
     def _record(i, res):
@@ -781,7 +863,13 @@ def refine_all(
         bubbles=len(work),
         pairs=len(all_pairs),
         cells=sum((len(a) + 1) * (len(b) + 1) for a, b in all_pairs),
-        pair_shapes=dict(Counter(bucket_key(a, b) for a, b in all_pairs)),
+        route=route,
+        chain_bubbles=len(work) - len(rem_idx),
+        chain_shapes=chain.get("shapes", {}),
+        chain_batches=chain.get("batches", 0),
+        chain_dp_batches=chain.get("dp_batches", 0),
+        chain_seconds=t_chain,
+        pair_shapes=dict(Counter(bucket_key(a, b) for a, b in rem_pairs)),
         stage1=stage1,
         refined=len(digests),
         aligned_bubbles=sum(

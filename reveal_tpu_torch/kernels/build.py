@@ -136,6 +136,12 @@ def load_library() -> ctypes.CDLL:
     # (forward, B, L1p, P) -> 32-bit words of zeroed scratch
     lib.rtt_pairhmm_scratch_words.argtypes = [ci] * 4
     lib.rtt_pairhmm_scratch_words.restype = ctypes.c_long
+    # (p, out, B, L1p, L2p, nrows, stream)
+    lib.rtt_mea_score_f32.argtypes = [vp, vp] + [ci] * 4 + [vp]
+    lib.rtt_mea_score_f32.restype = ci
+    # (L2p, &threads, &k4) -> 1 if the kernel takes rows of L2p columns
+    lib.rtt_mea_score_plan.argtypes = [ci, vp, vp]
+    lib.rtt_mea_score_plan.restype = ci
     return lib
 
 

@@ -194,7 +194,8 @@ COPIED = {
         "_emission_tables", "_log_params", "_pad_with_dummy", "_bucket",
         "forward_np", "backward_np", "posterior_oracle"],
     "hmm.msa": [
-        "SparsePost", "_sparsify", "_mea_dp", "_mea_dp_fast", "_Aln",
+        "SparsePost", "_sparsify", "_bucket_len", "_mea_dp", "_mea_dp_fast",
+        "_Aln",
         "_build_posterior", "_align_alignments", "_add_gaps",
         "_compute_tree", "_consistency_round_sparse", "probcons_align",
         "_project", "_refine_once", "_refine_stage", "_annotation"],
@@ -236,39 +237,48 @@ CHANGED = {
     ],
     # external aligners and the whole-MSA native result are not ported
     ("hmm.refine", "msa_to_graph"): [
-        ("precomputed_mats=None,", "precomputed_msa=None,"),
+        ("precomputed_msa=None,",) * 2,
         ('"""MSA + column-graph construction (refine.msa2graph): the '
          "built-in", "from $PATH (muscle/probcons/msaprobs/pecan, "
          'refine.py:586-640)."""'),
         ('if method in ("muscle", "probcons", "msaprobs", "pecan"):',
          "else:"),
-        ("precomputed_mats=precomputed_mats,",
-         "precomputed_dist=precomputed_dist,"),
     ],
     # reveal_rem is not ported
     ("hmm.refine", "refine_bubble"): [
-        ("precomputed_mats=None,", "precomputed_msa=None,"),
+        ("precomputed_msa=None,",) * 2,
         ('"""refine.py:149-273: reveal_probcons / external MSA methods, '
          "or", 'refine.py:219-231)."""'),
         ('if method == "reveal_rem":', "else:"),
-        ("precomputed_mats=precomputed_mats,",
-         "precomputed_msa=precomputed_msa,"),
+        ("precomputed_msa=precomputed_msa,",) * 2,
     ],
-    # stage 1 of every bubble through batch_posteriors_cut on the device
-    # given: the native routes, the device consistency transform and the
-    # fused chain (reveal_tpu/hmm/refine.py:699-892) are left out
+    # the chain on a CUDA device, the two-phase route for the bubbles over
+    # the cap (reveal_tpu/hmm/refine.py:699-892); left out: the backend
+    # probe, the native crossovers, the full two-phase recompute and the
+    # device consistency of the two-phase route, the excepts that
+    # reroute a failure, the whole-MSA native result
     ("hmm.refine", "refine_all"): [
         ('"""refine.py:377-525 (sequential path; device batching inside '
          "MSA).",) * 2,
-        ("from .msa import (", '"device consistency failed (%s); host '
+        ("batch_consistency,",) * 2,
+        ("use_dev = False", "pass"),
+        ("# phase 1 (device path): fused posterior -> distance -> "
+         "consistency", "# runs the exact float64 consistency loop on "
+         "host."),
+        ("msa_for = [None] * len(work)",) * 2,
+        ('if all_pairs and method == "reveal_probcons":',
+         '"native MSA batch failed (%s); host path", e'),
+        ("rem_idx = [", "]"),
+        ("if use_dev and rem_idx and not done:", "e,"),
+        ("if not done:", '"device consistency failed (%s); host '
          'fallback", e'),
-        (")",) * 2,
         ("jobs = list(zip(work, pair_slices, mats_for, dist_for, "
          "msa_for))",) * 2,
         ("(bubble, sg, offsets, paths, aobjs), (s, e), pmats, pdist, "
          "pmsa = job",) * 2,
-        ("precomputed_mats=pmats,", "precomputed_msa=pmsa,"),
-        ("parallel_ix = [", "]"),
+        ("precomputed_msa=pmsa,",) * 2,
+        ("for i, (_w, _se, pm, _pd, pmsa) in enumerate(jobs)",
+         "if pm is not None or pmsa is not None or posteriors"),
     ],
     # the device option, and the output path returned
     ("cli", "refine_cmd"): [],
@@ -312,8 +322,11 @@ def test_constants_equal_the_originals():
             n for n in dir(jd) if n.startswith("ABORT_")):
         assert getattr(pd, k) == getattr(jd, k), k
     for k in ("POSTERIOR_CUTOFF", "OP_B", "OP_Y", "OP_X",
-              "_SPARSE_CONS_MIN_ELEMS"):
+              "_SPARSE_CONS_MIN_ELEMS", "CHAIN_BYTES_CAP"):
         assert getattr(pm, k) == getattr(jm, k), k
+    import reveal_tpu.hmm.pairhmm as jp
+
+    assert pm.SPARSE_TRANSFER_MIN_WIDTH == jp.SPARSE_TRANSFER_MIN_WIDTH
     assert port_rem.DEFER_MAX == 16
 
 
