@@ -1,14 +1,15 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile] [--tree DIR]
+                          [--only kernels|profile|multi] [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
 and the kernels against their plain versions, for work on a kernel.
-``--only profile`` runs phases 1-2 and 5b only.  ``--tree DIR`` imports
-``reveal_tpu_torch`` from the checkout at DIR instead of this one (with
-``--only profile``: the parent's forest timed beside this one's, in
-turns, on one card in one go).
+``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
+phases 1-2, the window-resolve checks of phase 3 and phase 5c.
+``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
+instead of this one (with ``--only profile``: the parent's forest timed
+beside this one's, in turns, on one card in one go).
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -45,8 +46,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    synchronised host clock around each call of the forest's stages
    (enumerate, trim, chain, anchor log, children, split, repair pass),
    and a run under ``torch.profiler`` over the forest (kernel launches,
-   host syncs, device time, the card's busy share, the kernels that take
-   the most device time);
+   host syncs as ``cudaStreamSynchronize`` calls, device time, the
+   card's busy share, the kernels that take the most device time);
+5c. multi-genome ``rem``: ``simulate_population(n, length, seed)`` at
+   the CLI's defaults through ``cli rem --frontier --device cuda`` (the
+   multi-genome device loop), its GFA held byte for byte against the
+   port's host engine: (a) 6 x 100 kbp, (b) 8 x 50 kbp (8 paths), (c) 3
+   x 300 kbp with one genome cut in two contigs (4 paths).  Every repair
+   round launches window-resolve once, no repair-pass launch.  Each case
+   once more under ``torch.profiler`` (launches, host syncs, busy
+   share); case (a) three times more: with a synchronised clock around
+   the loop's stages, with torch's sync debug mode putting every host
+   sync to the line of the port that made it, and with every repair
+   round's window-resolve held exactly against its plain version
+   (plain, kernel, kernel, plain; CUDA events).  Then
+   6 x 1 Mbp, past ``--maxmums``, must raise naming ``ABORT_MAXMUMS``
+   and item 8 without running the host engine;
 6. ``refine``: a six-path chain of bubbles (64 with alleles near 500 bp,
    8 near 1900 bp, 10-15% substitutions and indels up to 12 bp between
    alleles) written from ``--seed``, through ``cli refine --all
@@ -58,10 +73,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    same bubbles then runs once more with a synchronised clock around its
    steps, each of its MEA-score launches held against the plain loop on
    its own input and each pair's score against the host MEA DP of its
-   posterior.  The same GFA then goes through the two-phase route on the
-   card (stage 1 on the card, stage 2 on the host): the bubbles whose
-   refined subgraph differs are counted and the transformed matrices
-   held against the chain's.  Stage 1 of the two-phase route is then run
+   posterior.  The same GFA's 64 bubbles near 500 bp then go through the
+   two-phase route on the card (stage 1 on the card, stage 2 on the
+   host): the bubbles whose refined subgraph differs are counted and the
+   transformed matrices held against the chain's.  Stage 1 of the two-phase route is then run
    again phase by phase (pack and copy in, classes and reversal, forward
    kernel, backward kernel, combine, cut with the MEA-score kernel, top-K
    and copy back).  A 13-bubble graph goes through the native float64
@@ -128,6 +143,9 @@ LOG_ZERO = -2e20
 
 REFINE_KW = dict(minlength=20, minsize=2, maxsize=10000, minconf=0,
                  constrans=2, consgap=False, nrefinements=100)
+# the two-phase comparison takes the bubbles up to this size (those near
+# 500 bp of the 72-bubble graph)
+TWO_PHASE_MAXSIZE = 1000
 
 
 def _event_ms(fn, iters):
@@ -984,38 +1002,25 @@ FOREST_STAGES = ("enumerate_candidates", "trim_dim", "chain_dense",
                  "log_anchors", "children", "split_level", "repair_pass")
 
 
-def profile_forest(fastas, total_bp, workdir, label):
-    """``rem`` three times more through the CLI, the forest watched: a
-    warm-up run, a run with a synchronised host clock around every call
-    of each of the forest's stage functions, and a run under
-    ``torch.profiler`` over ``rem_device_forest``.  Only names that this
-    checkout and its parent both have (the stage functions,
-    ``rem_device_forest``, ``LAST_STATS``) are used, so that ``--tree``
-    can run it on the parent."""
+# the profiler's names of a kernel launch from the host
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")
+
+
+def clock_stages(module, names, run):
+    """``run()`` with a synchronised host clock around every call of the
+    functions ``names`` of ``module``; returns ({name: seconds},
+    {name: calls}, the seconds of the whole run)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from reveal_tpu_torch import cli
-    from reveal_tpu_torch.index import devloop
-
-    out = os.path.join(workdir, "profile.gfa")
-
-    def rem():
-        t0 = time.perf_counter()
-        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
-                  out])
-        return time.perf_counter() - t0
-
-    t_first = rem()
-    originals = {name: getattr(devloop, name) for name in FOREST_STAGES}
-    secs = dict.fromkeys(FOREST_STAGES, 0.0)
-    calls = dict.fromkeys(FOREST_STAGES, 0)
+    originals = {name: getattr(module, name) for name in names}
+    secs = dict.fromkeys(names, 0.0)
+    calls = dict.fromkeys(names, 0)
 
     def clocked(name):
         fn = originals[name]
 
-        def run(*args, **kw):
+        def call(*args, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = fn(*args, **kw)
@@ -1023,15 +1028,164 @@ def profile_forest(fastas, total_bp, workdir, label):
             secs[name] += time.perf_counter() - t0
             calls[name] += 1
             return res
-        return run
+        return call
 
-    for name in FOREST_STAGES:
-        setattr(devloop, name, clocked(name))
+    for name in names:
+        setattr(module, name, clocked(name))
     try:
-        t_e2e = rem()
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
     finally:
         for name, fn in originals.items():
-            setattr(devloop, name, fn)
+            setattr(module, name, fn)
+    return secs, calls, wall
+
+
+def _stage_text(secs, calls):
+    return ", ".join("%s %.6f s (%d calls)" % (n, secs[n], calls[n])
+                     for n in secs)
+
+
+def trace_counts(prof):
+    """Calls by name (host side) and (microseconds, calls) by name (the
+    card's kernels and copies) from the raw events of a finished
+    ``torch.profiler`` run, without building its event tree (which
+    takes minutes at a few hundred thousand launches)."""
+    from torch.autograd import DeviceType
+
+    counts, device = {}, {}
+    for evt in prof.profiler.kineto_results.events():
+        name = evt.name()
+        if evt.device_type() == DeviceType.CUDA:
+            us, n = device.get(name, (0.0, 0))
+            device[name] = (us + evt.duration_ns() / 1e3, n + 1)
+        else:
+            counts[name] = counts.get(name, 0) + 1
+    return counts, device
+
+
+def profile_loop(module, fn_name, run):
+    """``run()`` with each call of ``module.fn_name`` traced under
+    ``torch.profiler`` (the last call's trace is kept).  Host syncs are
+    the ``cudaStreamSynchronize`` calls (the host waits for the card);
+    ``scalar_reads`` counts ``aten::_local_scalar_dense`` (``.item()``,
+    ``int()``, ``bool()`` of a device value), a subset of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn = getattr(module, fn_name)
+    traced = {}
+
+    def profiled(*args, **kw):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            traced["wall"] = time.perf_counter() - t0
+        traced["prof"] = prof
+        return res
+
+    setattr(module, fn_name, profiled)
+    try:
+        run()
+    finally:
+        setattr(module, fn_name, fn)
+    counts, device = trace_counts(traced["prof"])
+    device_us = sum(us for us, _n in device.values())
+    return {
+        "launches": sum(v for k, v in counts.items() if k in LAUNCH_CALLS),
+        "host_syncs": counts.get("cudaStreamSynchronize", 0),
+        "scalar_reads": counts.get("aten::_local_scalar_dense", 0),
+        "memcpy": counts.get("cudaMemcpyAsync", 0),
+        "device_s": device_us / 1e6,
+        "traced_wall_s": traced["wall"],
+        "busy": ("%.1f%%" % (100.0 * device_us / 1e6 / traced["wall"])
+                 if device_us > 0 else
+                 "not measured (no device time traced)"),
+        "device": sorted(((us, n, k) for k, (us, n) in device.items()),
+                         reverse=True),
+    }
+
+
+def print_profile(what, prof, extra=""):
+    print("%s under torch.profiler: %d kernel launches, %d host syncs "
+          "(cudaStreamSynchronize; of them %d aten::_local_scalar_dense; "
+          "%d cudaMemcpyAsync)%s; device time %.6f s over a traced wall of "
+          "%.6f s: card busy %s"
+          % (what, prof["launches"], prof["host_syncs"],
+             prof["scalar_reads"], prof["memcpy"], extra, prof["device_s"],
+             prof["traced_wall_s"], prof["busy"]))
+    for us, count, key in prof["device"][:6]:
+        print("  device %.6f s in %d calls of %s" % (us / 1e6, count,
+                                                    key[:90]))
+
+
+def attribute_syncs(module, fn_name, run):
+    """``run()`` with torch's sync debug mode set to warn inside each call
+    of ``module.fn_name``: every operation that makes the host wait for
+    the card is put to the innermost line of the port's own code that
+    made it.  Returns [(count, "file:line"), ...], the most first."""
+    import warnings
+
+    import torch
+
+    fn = getattr(module, fn_name)
+    sites = {}
+    mark = os.sep + "reveal_tpu_torch" + os.sep
+
+    def showwarning(message, category, filename, lineno, file=None,
+                    line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frame = sys._getframe(1)
+        while frame is not None and mark not in frame.f_code.co_filename:
+            frame = frame.f_back
+        site = ("%s:%d" % (frame.f_code.co_filename.split(mark)[-1],
+                           frame.f_lineno) if frame is not None else
+                "%s:%d" % (filename, lineno))
+        sites[site] = sites.get(site, 0) + 1
+
+    def watched(*args, **kw):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = showwarning
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    setattr(module, fn_name, watched)
+    try:
+        run()
+    finally:
+        setattr(module, fn_name, fn)
+    return sorted(((n, k) for k, n in sites.items()), reverse=True)
+
+
+def profile_forest(fastas, total_bp, workdir, label):
+    """``rem`` three times more through the CLI, the forest watched: a
+    warm-up run, a run with the forest's stage functions clocked
+    (``clock_stages``), and a run with ``rem_device_forest`` traced
+    (``profile_loop``).  Only names that this checkout and its parent
+    both have (the stage functions, ``rem_device_forest``,
+    ``LAST_STATS``) are used, so that ``--tree`` can run it on the
+    parent."""
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import devloop
+
+    out = os.path.join(workdir, "profile.gfa")
+
+    def rem():
+        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
+                  out])
+
+    t0 = time.perf_counter()
+    rem()
+    t_first = time.perf_counter() - t0
+    secs, calls, t_e2e = clock_stages(devloop, FOREST_STAGES, rem)
     st = dict(devloop.LAST_STATS)
     rest = t_e2e - st["forest_seconds"] - st["host_prefix_seconds"]
     print("%s rem (first run in the process %.6f s end to end), then with "
@@ -1039,63 +1193,312 @@ def profile_forest(fastas, total_bp, workdir, label):
           "stages: %s; forest %.6f s, host prefix %.6f s, the rest of rem "
           "(fasta read, host ESA, replay, GFA write) %.6f s, end to end "
           "%.6f s (%.6f Mbp/s)"
-          % (label, t_first,
-             ", ".join("%s %.6f s (%d calls)" % (n, secs[n], calls[n])
-                       for n in FOREST_STAGES),
+          % (label, t_first, _stage_text(secs, calls),
              st["forest_seconds"], st["host_prefix_seconds"], rest, t_e2e,
              total_bp / 1e6 / t_e2e))
-
-    forest = devloop.rem_device_forest
-    traced = {}
-
-    def profiled(*args, **kw):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = forest(*args, **kw)
-            torch.cuda.synchronize()
-            traced["wall"] = time.perf_counter() - t0
-        traced["prof"] = prof
-        return res
-
-    devloop.rem_device_forest = profiled
-    try:
-        rem()
-    finally:
-        devloop.rem_device_forest = forest
-    counts = {}
-    for evt in traced["prof"].key_averages():
-        counts[evt.key] = counts.get(evt.key, 0) + evt.count
-    # device time: the kernels and copies themselves (an operator's own
-    # device time repeats its kernels'), by name
-    by_name = {}
-    for evt in traced["prof"].events():
-        if evt.device_type == DeviceType.CUDA:
-            us, n = by_name.get(evt.name, (0.0, 0))
-            by_name[evt.name] = (us + evt.time_range.elapsed_us(), n + 1)
-    device = [(us, n, name) for name, (us, n) in by_name.items()]
-    device_us = sum(d[0] for d in device)
-    launches = sum(v for k, v in counts.items()
-                   if k in ("cudaLaunchKernel", "cuLaunchKernel",
-                            "cuLaunchKernelEx", "cudaLaunchKernelExC"))
-    syncs = counts.get("aten::_local_scalar_dense", 0)
-    stream_syncs = counts.get("cudaStreamSynchronize", 0)
-    busy = ("%.1f%%" % (100.0 * device_us / 1e6 / traced["wall"])
-            if device_us > 0 else "not measured (no device time traced)")
-    print("%s forest under torch.profiler: %d kernel launches, %d host syncs "
-          "(aten::_local_scalar_dense: .item(), int(), bool() of a device "
-          "value), %d cudaStreamSynchronize, device time %.6f s over a "
-          "traced forest wall of %.6f s: card busy %s"
-          % (label, launches, syncs, stream_syncs, device_us / 1e6,
-             traced["wall"], busy))
-    for us, count, key in sorted(device, reverse=True)[:8]:
-        print("  device %.6f s in %d calls of %s" % (us / 1e6, count,
-                                                    key[:90]))
-    for us, count, key in device:
+    prof = profile_loop(devloop, "rem_device_forest", rem)
+    print_profile("%s forest" % label, prof)
+    for us, count, key in prof["device"]:
         if "repair_pass" in key or "window_resolve" in key:
             print("  the port's own kernel %s: device %.6f s in %d calls, "
                   "%.6f ms a call" % (key[:90], us / 1e6, count,
                                       us / 1e3 / count))
+
+
+# ----------------------------------------------------------------------
+# phase 5c: multi-genome rem on the card
+# ----------------------------------------------------------------------
+# (label, genomes, bp a genome, the sample whose genome is cut into two
+# contigs or None); every case at the CLI's defaults (-m 20, -n 2,
+# --maxmums 10000)
+MULTI_CASES = (
+    ("a", 6, 100_000, None),     # the main case: 9,360 root multiMUMs
+    ("b", 8, 50_000, None),      # D = 8 paths, the loop's full width
+    ("c", 3, 300_000, 0),        # 4 paths of 3 samples
+)
+# past the loop's limit: 101,731 root multiMUMs, over --maxmums
+MULTI_DECLINE = (6, 1_000_000)
+
+# the multi loop's stage functions, in the order of a level
+MULTI_STAGES = ("enumerate_multi", "select_subsets", "trim_dim_multi",
+                "same_paths", "chain_dense_multi", "log_anchors_multi",
+                "children_multi", "split_multi", "repair_pass_multi")
+
+
+def write_population(n, length, seed, workdir, split=None):
+    """Fastas of ``simulate_population(n, length, seed)`` in a new
+    directory under ``workdir``, the genome of sample ``split`` cut in
+    two contigs; returns (paths, total bp)."""
+    from reveal_tpu_torch.core.io_fasta import fasta_writer
+    from reveal_tpu_torch.utils.simulate import simulate_population
+
+    wd = tempfile.mkdtemp(dir=workdir, prefix="pop%d_%d_" % (n, length))
+    pop = simulate_population(n, length, seed=seed)
+    fastas = []
+    for i, (name, seq, _ids) in enumerate(pop):
+        fn = os.path.join(wd, name + ".fa")
+        half = len(seq) // 2
+        fasta_writer(fn, [(name, seq)] if i != split else
+                     [(name + "_1", seq[:half]), (name + "_2", seq[half:])])
+        fastas.append(fn)
+    return fastas, sum(len(seq) for _n, seq, _i in pop)
+
+
+def host_gfa(fastas, out):
+    """The port's serial host engine on ``fastas``, written as the CLI
+    writes a GFA of more than two paths; returns seconds."""
+    from reveal_tpu_torch.align.graphops import prune_nodes
+    from reveal_tpu_torch.align.rem import align_genomes_host
+    from reveal_tpu_torch.core.io_gfa import seq2node, write_gfa
+
+    t0 = time.perf_counter()
+    G, idx = align_genomes_host(fastas)
+    if len(G.graph["paths"]) > 2:
+        prune_nodes(G, T=idx.main.T)
+    seq2node(G, idx.main.T)
+    write_gfa(G, idx.main.T, outputfile=out)
+    return time.perf_counter() - t0
+
+
+def run_multi_case(label, fastas, total_bp, workdir):
+    """One multi case through ``cli rem --device cuda``, its GFA held
+    byte for byte against the host engine's; returns LAST_STATS with the
+    window-resolve launches counted around the run."""
+    import torch
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import devloop_multi, repair
+    from reveal_tpu_torch.index import window_resolve as wr
+
+    t_host = host_gfa(fastas, os.path.join(workdir, "host_%s.gfa" % label))
+    out = os.path.join(workdir, "port_%s.gfa" % label)
+    torch.cuda.reset_peak_memory_stats()
+    wr.LAUNCHES = 0
+    repair.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o", out])
+    t_e2e = time.perf_counter() - t0
+    launches = wr.LAUNCHES
+    st = dict(devloop_multi.LAST_STATS, launches=launches, e2e=t_e2e,
+              host=t_host, peak=torch.cuda.max_memory_allocated())
+    with open(os.path.join(workdir, "host_%s.gfa" % label), "rb") as fh:
+        host_bytes = fh.read()
+    with open(out, "rb") as fh:
+        port_bytes = fh.read()
+    if host_bytes != port_bytes:
+        raise AssertionError(
+            "multi case %s: port GFA (%d bytes) differs from the host "
+            "engine's (%d bytes)" % (label, len(port_bytes), len(host_bytes)))
+    if st.get("abort") != 0 or st.get("fallback") is not None:
+        raise AssertionError("multi case %s: the loop did not finish: %r"
+                             % (label, st))
+    if not (launches > 0 and launches == st["window_resolve_launches"]
+            == st["repair_rounds_total"]) or repair.LAUNCHES:
+        raise AssertionError(
+            "multi case %s: window_resolve launched %d times for %d repair "
+            "rounds (repair_pass %d times)"
+            % (label, launches, st["repair_rounds_total"], repair.LAUNCHES))
+    print("multi case %s (%s): GFA byte-identical to the host engine's (%d "
+          "bytes); %d paths, %d slots, caps %s; levels %d, repair rounds %d "
+          "in %d passes (window_resolve launches %d, candidates applied %d, "
+          "longest run %d, moved slots %d), chain column steps %d, trim "
+          "rows %d, anchors %d, dispatches %d, host reads of the loop %d; "
+          "loop %.6f s, end to end (fastas -> GFA, CLI in-process) %.6f s "
+          "(%.6f Mbp/s), host engine %.6f s; peak device memory %.6f GB"
+          % (label, ", ".join(os.path.basename(f) for f in fastas),
+             len(port_bytes), st["paths"], st["slots"], st["caps"],
+             st["levels"], st["repair_rounds_total"], st["repair_passes"],
+             launches, st["repair_applied"], st["repair_chain_max"],
+             st["repair_moved_slots"], st["chain_steps"], st["trim_steps"],
+             st["anchors"], st["dispatches"], st["host_syncs"],
+             st["loop_seconds"], t_e2e, total_bp / 1e6 / t_e2e, t_host,
+             st["peak"] / 1e9))
+    return st
+
+
+def _cli_rem(fastas, out):
+    from reveal_tpu_torch import cli
+
+    return lambda: cli.main(["rem", *fastas, "--frontier", "--device",
+                             "cuda", "-o", out])
+
+
+def clock_multi(fastas, workdir):
+    """Case (a) again with a synchronised host clock around every call
+    of the loop's stage functions."""
+    from reveal_tpu_torch.index import devloop_multi
+
+    secs, calls, _wall = clock_stages(
+        devloop_multi, MULTI_STAGES,
+        _cli_rem(fastas, os.path.join(workdir, "clock.gfa")))
+    loop = devloop_multi.LAST_STATS["loop_seconds"]
+    print("multi case a with a synchronised host clock around each call of "
+          "the loop's stages: %s; loop %.6f s (the stages %.6f s)"
+          % (_stage_text(secs, calls), loop, sum(secs.values())))
+
+
+def profile_multi(label, fastas, workdir):
+    """A multi case again with ``rem_device_multi`` traced
+    (``profile_loop``): kernel launches, host syncs, device time and the
+    card's busy share of the traced loop."""
+    from reveal_tpu_torch.index import devloop_multi
+
+    prof = profile_loop(
+        devloop_multi, "rem_device_multi",
+        _cli_rem(fastas, os.path.join(workdir, "profile_%s.gfa" % label)))
+    print_profile("multi case %s" % label, prof,
+                  ", the loop's own counted reads %d"
+                  % devloop_multi.LAST_STATS["host_syncs"])
+    return {k: prof[k] for k in ("launches", "host_syncs", "scalar_reads",
+                                 "busy", "device_s", "traced_wall_s")}
+
+
+def sync_sites_multi(fastas, workdir):
+    """Case (a) again with every host sync of the loop put to the line of
+    the port that made it (``attribute_syncs``)."""
+    from reveal_tpu_torch.index import devloop_multi
+
+    sites = attribute_syncs(
+        devloop_multi, "rem_device_multi",
+        _cli_rem(fastas, os.path.join(workdir, "syncs.gfa")))
+    total = sum(n for n, _k in sites)
+    print("multi case a under torch.cuda.set_sync_debug_mode('warn'): %d "
+          "synchronizing operations at %d lines of the port (the loop's own "
+          "counted reads %d); by line: %s"
+          % (total, len(sites), devloop_multi.LAST_STATS["host_syncs"],
+             ", ".join("%s %d" % (k, n) for n, k in sites)))
+    return total
+
+
+def hold_window_resolve(fastas, workdir):
+    """Case (a) again with ``window_resolve`` wrapped: every repair round's
+    (LCP, q, thr) goes through the plain version, the kernel, the kernel
+    and the plain version, each between two CUDA events, the results held
+    exactly equal; then the round goes on with the kernel's.  Returns the
+    kernel's mean time, the plain version's, and the bound by bytes (the
+    LCP words of the windows, q, thr and the result) at the path's own
+    shapes."""
+    import torch
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import window_resolve as wr
+
+    kernel = wr.window_resolve
+    rounds = []
+    worst = 0
+
+    def hold(lcp, q, thr, wrv=WRV):
+        nonlocal worst
+        times = {wr.window_resolve_plain: [], kernel: []}
+        outs = {}
+        for fn in (wr.window_resolve_plain, kernel, kernel,
+                   wr.window_resolve_plain):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs[fn] = fn(lcp, q, thr, wrv)
+            stop.record()
+            torch.cuda.synchronize()
+            times[fn].append(start.elapsed_time(stop))
+        got, ref = outs[kernel], outs[wr.window_resolve_plain]
+        worst = max(worst, int((got.long() - ref.long()).abs().max()))
+        if worst:
+            bad = int((got != ref).nonzero()[0, 0])
+            raise AssertionError(
+                "window_resolve differs from plain in repair round %d at r=%d "
+                "(q=%d thr=%d): %d vs %d" % (len(rounds), bad, int(q[bad]),
+                                             int(thr[bad]), int(got[bad]),
+                                             int(ref[bad])))
+        nbytes = q.numel() * wrv * 4 + 3 * q.numel() * 4
+        rounds.append((sum(times[kernel]) / 2,
+                       sum(times[wr.window_resolve_plain]) / 2, nbytes,
+                       q.numel(), lcp.numel()))
+        return got
+
+    wr.window_resolve = hold
+    try:
+        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
+                  os.path.join(workdir, "hold.gfa")])
+    finally:
+        wr.window_resolve = kernel
+    k = len(rounds)
+    ms = sum(r[0] for r in rounds) / k
+    plain_ms = sum(r[1] for r in rounds) / k
+    bound_ms = sum(r[2] for r in rounds) / k / HBM_BYTES_PER_S * 1e3
+    print("window_resolve on the multi path: equal to plain on all %d repair "
+          "rounds of case a (RBV %d, npad %d); per call from CUDA events "
+          "(plain, kernel, kernel, plain): kernel %.6f ms (sum %.6f), plain "
+          "%.6f ms (sum %.6f), bound by bytes %.6f ms a call"
+          % (k, rounds[0][3], rounds[0][4], ms, sum(r[0] for r in rounds),
+             plain_ms, sum(r[1] for r in rounds), bound_ms))
+    return {"rounds": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "rbv": rounds[0][3], "npad": rounds[0][4], "max_abs_err": worst}
+
+
+def check_decline(seed, workdir):
+    """6 x 1 Mbp at the defaults: the root has more than --maxmums
+    candidates, so ``cli rem --device cuda`` must raise naming
+    ABORT_MAXMUMS and item 8, without running the host engine."""
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.align import rem
+    from reveal_tpu_torch.index import devloop_multi
+
+    n, length = MULTI_DECLINE
+    fastas, _bp = write_population(n, length, seed, workdir)
+    host_runs = []
+    host_loop = rem._align_loop
+    rem._align_loop = lambda *a, **k: host_runs.append(a)
+    t0 = time.perf_counter()
+    try:
+        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
+                  os.path.join(workdir, "decline.gfa")])
+    except RuntimeError as err:
+        msg = str(err)
+    else:
+        raise AssertionError("%d x %d bp did not raise" % (n, length))
+    finally:
+        rem._align_loop = host_loop
+    if "ABORT_MAXMUMS" not in msg or "item 8" not in msg or host_runs:
+        raise AssertionError("decline of %d x %d bp: %r (host engine runs: "
+                             "%d)" % (n, length, msg, len(host_runs)))
+    st = devloop_multi.LAST_STATS
+    print("multi decline: %d x %d bp raised in %.6f s (levels %d, loop "
+          "%.6f s), the host engine not run: %s"
+          % (n, length, time.perf_counter() - t0, st["levels"],
+             st["loop_seconds"], msg))
+
+
+def run_multi(seed, workdir):
+    """Phase 5c.  Returns the window-resolve row's update: the main
+    path's launches (case a) and the kernel's times at its shapes."""
+    cases = {}
+    for label, n, length, split in MULTI_CASES:
+        fastas, total_bp = write_population(n, length, seed, workdir, split)
+        st = run_multi_case(label, fastas, total_bp, workdir)
+        st["profile"] = profile_multi(label, fastas, workdir)
+        cases[label] = (fastas, st)
+    fastas_a, st_a = cases["a"]
+    clock_multi(fastas_a, workdir)
+    sync_sites_multi(fastas_a, workdir)
+    held = hold_window_resolve(fastas_a, workdir)
+    if held["rounds"] != st_a["launches"]:
+        raise AssertionError("the held run made %d rounds, the main run %d"
+                             % (held["rounds"], st_a["launches"]))
+    check_decline(seed, workdir)
+    return {
+        "launches": st_a["launches"],
+        "main_path": "rem, 3+ genomes: multi-loop repair rounds",
+        "ms": held["ms"], "plain_ms": held["plain_ms"],
+        "bound_ms": held["bound_ms"], "bound_by": "bytes",
+        "max_abs_err": held["max_abs_err"],
+        "path_shape": {"rbv": held["rbv"], "npad": held["npad"],
+                       "wrv": WRV},
+        "multi_cases": {
+            label: {k: st[k] for k in ("paths", "levels", "launches",
+                                       "host_syncs", "loop_seconds", "e2e",
+                                       "host", "peak", "profile")}
+            for label, (_f, st) in cases.items()},
+    }
 
 
 def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
@@ -1479,25 +1882,32 @@ def run_refine(seed, workdir):
     shapes = check_chain_scans(watch.scans)
     del watch
 
-    # the two-phase route on the card, its matrices held against the
-    # chain's bubble by bubble
+    # the two-phase route on the card for the graph's bubbles near 500 bp
+    # (the float64 host transform of the eight near 1900 bp took 90-140 s),
+    # its matrices held against the chain's bubble by bubble
     import torch
 
-    with _ChainWatch(against=[mats for mats, _dist in chain]) as two, \
-            _GcClock() as gc_two:
+    keep = [max(len(a) for a in b) <= TWO_PHASE_MAXSIZE for b in bubbles]
+    with _ChainWatch(against=[mats for (mats, _dist), k in zip(chain, keep)
+                              if k]) as two, _GcClock() as gc_two:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         refine.refine_all(read_gfa(gfa), device="cuda", route="two-phase",
-                          **REFINE_KW)
+                          **dict(REFINE_KW, maxsize=TWO_PHASE_MAXSIZE))
         secs2 = time.perf_counter() - t0
     del chain
     st2 = dict(refine.LAST_STATS)
-    differ = sum(a != b for a, b in zip(st["digests"], st2["digests"]))
-    if len(st2["digests"]) != len(st["digests"]) or two.calls != 72:
-        raise AssertionError("the two routes refined %d and %d bubbles"
-                             % (len(st["digests"]), len(st2["digests"])))
-    print("refine, the two-phase route on the card for the same graph: %d "
-          "of %d bubbles' refined subgraphs differ from the chain's; "
+    chain_digests = [d for d, k in zip(st["digests"], keep) if k]
+    differ = sum(a != b for a, b in zip(chain_digests, st2["digests"]))
+    if (len(st2["digests"]) != len(chain_digests) or two.calls != sum(keep)
+            or sum(keep) != 64):
+        raise AssertionError("the two routes refined %d and %d of %d "
+                             "bubbles near 500 bp"
+                             % (len(chain_digests), len(st2["digests"]),
+                                sum(keep)))
+    print("refine, the two-phase route on the card for the graph's bubbles "
+          "near 500 bp: %d of %d bubbles' refined subgraphs differ from the "
+          "chain's; "
           "transformed matrices within %.3e of the chain's (gate 5e-3; %d "
           "cells within the gate of the 0.01 cut kept on one side only); "
           "stage 1 %.6f s, host MSA %.6f s, splice %.6f s, end to end %.6f "
@@ -1508,7 +1918,7 @@ def run_refine(seed, workdir):
              torch.cuda.max_memory_allocated() / 1e9))
     print("refine, the two-phase route: Python's cyclic garbage collector "
           "during the run: %s" % gc_two.text())
-    split = stage1_split(bubbles, st2)
+    split = stage1_split([b for b, k in zip(bubbles, keep) if k], st2)
 
     # the native float64 stage 1 against the card's, on 13 bubbles
     small = os.path.join(workdir, "bubbles13.gfa")
@@ -1693,10 +2103,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
-    ap.add_argument("--only", choices=["kernels", "profile"], default=None,
+    ap.add_argument("--only", choices=["kernels", "profile", "multi"],
+                    default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
-                         "'profile': phases 1-2 and 5b only; either prints "
+                         "'profile': phases 1-2 and 5b only; 'multi': "
+                         "phases 1-2, window-resolve and 5c; each prints "
                          "no result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
@@ -1752,6 +2164,12 @@ def main(argv=None):
                            "tree %s:" % (args.tree or "."))
             print("chip_smoke --only profile: phases 1-2 and 5b passed")
             return
+        if args.only == "multi":
+            check_window_resolve(dev)
+            run_multi(args.seed, wd)
+            print("chip_smoke --only multi: phases 1-2, window-resolve and "
+                  "5c passed")
+            return
         rows = [check_window_resolve(dev)] + check_pairhmm(dev)
         rows.append(check_repair(fastas, wd))
         rows.append(check_mea_score(dev))
@@ -1761,6 +2179,7 @@ def main(argv=None):
             return
         rem_launches, rem_gfa, t_rem = run_rem(fastas, total_bp, wd)
         profile_forest(fastas, total_bp, wd, "this checkout:")
+        multi = run_multi(args.seed, wd)
         launches, two_phase_batches, scans = run_refine(args.seed, wd)
         main_scans = [dict(time_mea(p, nrows, 10), launches=n)
                       for p, nrows, n in scans.values()]
@@ -1768,11 +2187,13 @@ def main(argv=None):
         relax = time_relaxation(dev)
         run_mixed(args.seed, wd)
         run_rem_then_refine(rem_gfa, wd, t_rem)
-    # window-resolve is off the rem path since the repair pass became one
-    # kernel (run_rem checked that it launched 0 times there)
-    rows[0]["launches"] = 0
-    rows[0]["main_path"] = ("none: rem's repair passes run "
-                            "csrc/repair_pass.cu, which searches itself")
+    # window-resolve runs the multi loop's repair rounds (case a's
+    # launches and times at its shapes); it is off the pairwise rem path,
+    # whose repair passes run csrc/repair_pass.cu (run_rem checked 0
+    # launches there).  The synthetic shapes' numbers stay beside them.
+    rows[0]["synthetic"] = {k: rows[0][k] for k in ("ms", "plain_ms",
+                                                    "bound_ms")}
+    rows[0].update(multi)
     # the main path of this slice: refine on the chain (72 bubbles)
     rows[1]["launches"] = launches["fwd"]
     rows[2]["launches"] = launches["bwd"]
@@ -1795,6 +2216,7 @@ def main(argv=None):
               if m.split(".")[0] in ("jax", "jaxlib", "reveal_tpu")]
     if loaded:
         raise AssertionError("imported: %s" % ", ".join(sorted(loaded)))
+    print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

@@ -11,15 +11,19 @@ Covered so far:
 
 * pairwise ``rem --frontier`` (two fastas -> GFA), whose residual
   recursion runs on the device as the level kernel of ``index/devloop.py``
-  with the repair window-resolve as a CUDA kernel
-  (``csrc/window_resolve.cu``);
+  with each repair pass one launch of a CUDA kernel
+  (``csrc/repair_pass.cu``);
+* multi-genome ``rem --frontier`` (three or more fastas, up to 8 contig
+  paths -> GFA), whose whole recursion runs on the device as the level
+  loop of ``index/devloop_multi.py`` with the repair rounds' insertion
+  points from the window-resolve CUDA kernel (``csrc/window_resolve.cu``);
 * ``refine`` (GFA -> GFA with realigned bubbles), whose pair posteriors
   (stage 1 of the consistency MSA) run on the device with the pair-HMM
   forward and backward DP as CUDA kernels (``csrc/pairhmm_dp.cu``).
 
 Entry points:
 
-* ``reveal_tpu_torch.align.rem.align_genomes([a.fa, b.fa], device="cuda")``
+* ``reveal_tpu_torch.align.rem.align_genomes([a.fa, b.fa, ...], device="cuda")``
 * ``reveal_tpu_torch.hmm.refine.refine_all(G, device="cuda", ...)``
 * ``python -m reveal_tpu_torch.cli rem a.fa b.fa --frontier -o out.gfa``
 * ``python -m reveal_tpu_torch.cli refine g.gfa --all -o out.gfa``

@@ -1,26 +1,34 @@
-"""Pairwise ``rem`` on a torch device, with the host engine beside it.
+"""``rem`` on a torch device, with the host engine beside it.
 
 Counterpart of ``reveal_tpu/align/rem.py``.  The host half is this
 package's own copy of the reference's host code: fasta reading
 (``read_fasta_into``), the native whole-recursion engine
-(``_rem2_native_loop``), the anchor replay (``_rem2_replay``,
-``_rem2_replay_native``) and the serial host engine (``_align_loop`` with
-``graphalign`` and ``_enum_pick``).  ``align_genomes`` and
-``_rem_device_hybrid`` (reference :1174 and :215) route pairwise
-``rem --frontier``: the native host prefix ``rem2_defer_native`` runs the
-big segments, the deferred forest runs on the device given
-(``index/devloop.rem_device_forest``).  ``align_genomes_host`` runs the
-serial host engine alone; it is the reference the device path is held to.
+(``_rem2_native_loop``), the anchor replays (``_rem2_replay``,
+``_rem2_replay_native``, ``_rem_multi_replay``), the multi loop's
+eligibility (``_multi_fast_eligible``) and the serial host engine
+(``_align_loop`` with ``graphalign`` and ``_enum_pick``).
+``align_genomes`` and ``align_seqs`` route ``rem --frontier``
+(``_align_frontier``, the device routes of the reference's
+``_align_loop_frontier``): three or more samples (up to 8 contig paths)
+take the multi-genome loop on the device given
+(``index/devloop_multi.rem_device_multi`` through
+``_rem_device_multi_loop``); a pairwise fasta input takes the native
+host prefix ``rem2_defer_native`` for the big segments and the deferred
+forest on the device (``index/devloop.rem_device_forest``).
+``align_genomes_host`` runs the serial host engine alone; it is the
+reference the device paths are held to.
 
 Inputs the port does not cover raise ``NotImplementedError``; they are
-never routed to another engine.  When the forest declines an input (a
-kernel abort code such as ``ABORT_DUP_REF``, which needs the host's
-dict-aliasing, capacity retries that run out, the level cap, a text of
-2^30 bytes or more, or a host prefix that cannot defer), a run on a
-CUDA device raises, so that no run on the card finishes on the host
-engine unseen.  On the CPU device it falls back to the serial host
-engine as the reference does; the fallback is logged and recorded in
-``devloop.LAST_STATS["fallback"]``.
+never routed to another engine.  When the forest or the multi loop
+declines an input (a kernel abort code such as ``ABORT_DUP_REF``, which
+needs the host's dict-aliasing, or ``ABORT_MAXMUMS``, a segment with
+more than ``maxmums`` candidates; capacity retries that run out; the
+level cap; a text of 2^30 bytes or more; a host prefix that cannot
+defer; more than 8 paths), a run on a CUDA device raises, so that no run
+on the card finishes on the host engine unseen.  On the CPU device it
+falls back to the serial host engine; the fallback is logged and
+recorded in ``LAST_STATS["fallback"]`` of ``devloop`` (pairwise) or
+``devloop_multi``.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import logging
 import os
 import time
 import uuid
-from typing import List
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -38,12 +46,13 @@ from ..core.io_fasta import fasta_reader
 from ..core.textstore import TextStore
 from ..core.torchconfig import resolve_device
 from ..graph.pangraph import PanGraph
-from ..index import devloop
+from ..index import devloop, devloop_multi
 from ..index.esa_index import ESAIndex
 from .graphops import (
     IntervalIndex,
     breaknode,
     mergenodes,
+    prune_nodes,
     segmentgraph,
 )
 from .picker import MumPicker, PickerConfig
@@ -735,24 +744,84 @@ def _rem_device_hybrid(
     return len(allanch)
 
 
+def _abort_name(code):
+    names = [k for k, v in vars(devloop).items()
+             if k.startswith("ABORT_") and v == code]
+    return names[0] if names else "unknown"
+
+
+def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
+               cfg: PickerConfig, device):
+    """Three or more samples: the whole recursion on ``device`` through
+    ``_rem_device_multi_loop``.  A decline (the loop leaves the text as
+    it was) raises on a CUDA device and finishes on the host engine on
+    the CPU.  Returns the anchor count."""
+    st = devloop_multi.LAST_STATS
+    st.clear()
+    steps = _rem_device_multi_loop(G, t, root, cfg, device)
+    if steps is not None:
+        st["fallback"] = None
+        return steps
+    if not st:
+        why = ("not eligible for the multi loop (more than 8 contig paths, "
+               "non-default picking, seeding, size or depth gates)")
+    elif st.get("abort"):
+        why = "kernel abort code %d (%s)" % (st["abort"],
+                                             _abort_name(st["abort"]))
+    elif st.get("pop_order_mismatch"):
+        why = "anchor pop order does not cover the log"
+    else:
+        why = "text of %d bytes, at or above 2^30" % len(root.main.T)
+    st["fallback"] = why
+    if device.type != "cpu":
+        raise RuntimeError(
+            "the multi-genome device loop declined this input (%s) on %s; "
+            "such inputs go to the per-level device frontier, which is not "
+            "covered by reveal_tpu_torch yet (ROADMAP queue 1 item 8); run "
+            "reveal_tpu for it" % (why, device)
+        )
+    log.warning("multi loop declined (%s): host engine fallback", why)
+    return _align_loop(G, t, root, cfg)
+
+
+def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
+                    cfg: PickerConfig, device):
+    """The device routes of ``_align_loop_frontier`` (reference rem.py:870;
+    no mesh): three or more samples take the multi-genome loop, a
+    pairwise fasta input the host prefix and device forest.  Inputs
+    neither takes go to the per-level frontier there, which the port
+    does not cover (item 8)."""
+    if not cfg.trim:
+        raise _not_covered("--notrim", "8")
+    if root.main.nsamples > 2:
+        return _rem_multi(G, t, root, cfg, device)
+    if not _pairwise_fast_eligible(G, root, cfg):
+        raise _not_covered(
+            "this input or configuration (multi-contig, seeding, size or "
+            "depth gates, non-default picking)", "8",
+        )
+    if not float(cfg.wpen).is_integer() or cfg.minlength < 1:
+        raise _not_covered("a fractional --wpen or minlength < 1", "8")
+    return _rem_device_hybrid(G, t, root, cfg, device)
+
+
 def align_genomes(
     inputfiles: List[str],
     device="cuda",
     frontier: bool = True,
     **cfgkw,
 ):
-    """Pairwise alignment of two fasta files -> (G, idx), the residual
-    recursion on ``device``.  Mirrors ``reveal_tpu.align.rem.
-    align_genomes(inputfiles, frontier=True)`` for the pairwise case;
-    ``cfgkw`` are ``PickerConfig`` fields."""
+    """Alignment of two or more fasta files -> (G, idx), the recursion
+    on ``device``.  Mirrors ``reveal_tpu.align.rem.align_genomes(
+    inputfiles, frontier=True)`` for fasta inputs: three or more samples
+    take the multi-genome device loop, two the host prefix and device
+    forest; ``cfgkw`` are ``PickerConfig`` fields."""
     dev = resolve_device(device)
     if not frontier:
         raise _not_covered("the serial LIFO engine (no --frontier)", "10")
     for f in inputfiles:
         if f.endswith(".gfa") or f.endswith(".gfa.gz"):
-            raise _not_covered("graph (.gfa) input", "6")
-    if len(inputfiles) > 2:
-        raise _not_covered("multi-genome alignment", "6")
+            raise _not_covered("graph (.gfa) input", "8")
 
     ts = TextStore()
     t = IntervalIndex()
@@ -769,22 +838,12 @@ def align_genomes(
     # quietly switching to the numpy suffix sort
     idx = ESAIndex.construct(ts, backend="native")
     idx.nodes = root_nodes
-    cfg = PickerConfig(**cfgkw)
-    if not cfg.trim:
-        raise _not_covered("--notrim", "8")
-    if not _pairwise_fast_eligible(G, idx, cfg):
-        raise _not_covered(
-            "this input or configuration (multi-contig, seeding, size or "
-            "depth gates, non-default picking)", "8",
-        )
-    if not float(cfg.wpen).is_integer() or cfg.minlength < 1:
-        raise _not_covered("a fractional --wpen or minlength < 1", "8")
-    _rem_device_hybrid(G, t, idx, cfg, dev)
+    _align_frontier(G, t, idx, PickerConfig(**cfgkw), dev)
     return G, idx
 
 
 def align_genomes_host(inputfiles: List[str], **cfgkw):
-    """Pairwise alignment of fasta files by the serial host engine
+    """Alignment of fasta files by the serial host engine
     alone (``_align_loop``: the native whole-recursion loop where
     eligible, else the per-step LIFO loop) -> (G, idx).  The reference
     the device path is held to; not an entry point of the CLI."""
@@ -801,4 +860,301 @@ def align_genomes_host(inputfiles: List[str], **cfgkw):
     idx = ESAIndex.construct(ts, backend="native")
     idx.nodes = root_nodes
     _align_loop(G, t, idx, PickerConfig(**cfgkw))
+    return G, idx
+
+
+def _multi_fast_eligible(
+    G: PanGraph, root: ESAIndex, cfg: PickerConfig
+):
+    """Eligibility for the whole-recursion multi device loop: plain
+    multi-fasta roots (whole contig-paths at offset 0, up to 8 paths,
+    >=3 samples), default largest/sumofpairs picking, no seeding/size
+    gates.  Returns (path_ivs, path_samples) or None."""
+    main = root.main
+    DS = main.nsamples
+    if (
+        getattr(G, "multi", False)
+        or DS < 3
+        or os.environ.get("REVEAL_TPU_DISABLE_FASTPICK")
+        or cfg.splitchain != "largest"
+        or cfg.gcmodel != "sumofpairs"
+        or not float(cfg.wscore).is_integer()
+        or not float(cfg.wpen).is_integer()
+        or cfg.seedsize
+        or cfg.maxdepth is not None
+        or cfg.maxsize is not None
+        or not cfg.trim
+        or cfg.minlength < 1
+        or root.skipmums
+    ):
+        return None
+    nodes = sorted(
+        iv for iv in root.nodes if not isinstance(iv, str)
+    )
+    if len(nodes) > 8:
+        return None
+    path_ivs = []
+    path_samples = []
+    for iv in nodes:
+        offs = G.nodes[iv]["offsets"]
+        if len(offs) != 1:
+            return None
+        (pid, off), = offs.items()
+        if off != 0 and True:
+            # non-zero offsets appear for graph inputs only
+            return None
+        path_ivs.append((int(iv[0]), int(iv[1])))
+        path_samples.append(int(main.SO[iv[0]]))
+    # path dim order must equal path id order for the replay's
+    # node-offset arithmetic; require path ids == sorted position order
+    pid_of = []
+    for iv in nodes:
+        (pid, _), = G.nodes[iv]["offsets"].items()
+        pid_of.append(pid)
+    if pid_of != sorted(pid_of):
+        return None
+    pidvals = sorted(G.graph.get("path2id", {}).values())
+    if pidvals != list(range(len(pidvals))):
+        return None
+    return path_ivs, path_samples
+
+
+def _rem_multi_replay(G: PanGraph, anchors, D: int):
+    """Graph surgery replay for multi anchors (records in serial pop
+    order): per record, breaknode per subset sample ascending
+    (graphalign hit order = spd order, rem.py:332-345) then mergenodes
+    into the first match node (graphops.mergenodes DiGraph branch,
+    rem.py:131-201).  Same inlined mutation sequence as _rem2_replay."""
+    nodes = G.nodes
+    succ = G.succ
+    pred = G.pred
+
+    def brk(node, pos, l):
+        att = nodes[node]
+        mn = (pos, pos + l)
+        if mn == node:
+            return node
+        offs = att["offsets"]
+        in_items = list(pred[node].items())
+        out_items = list(succ[node].items())
+        if in_items or out_items:
+            pospaths = set()
+            for _, d in in_items:
+                pospaths |= d["paths"]
+            for _, d in out_items:
+                pospaths |= d["paths"]
+        else:
+            pospaths = set(offs.keys())
+        nodes[mn] = {
+            "offsets": {s: o + (pos - node[0]) for s, o in offs.items()},
+            "aligned": 0,
+        }
+        succ[mn] = {}
+        pred[mn] = {}
+        if node[0] != pos:
+            pn = (node[0], pos)
+            nodes[pn] = {"offsets": dict(offs), "aligned": 0}
+            succ[pn] = {}
+            pred[pn] = {}
+            d = {"paths": set(pospaths), "ofrom": "+", "oto": "+"}
+            succ[pn][mn] = d
+            pred[mn][pn] = d
+        else:
+            pn = mn
+        if node[1] != pos + l:
+            sn = (pos + l, node[1])
+            nodes[sn] = {
+                "offsets": {
+                    s: o + (pos + l - node[0]) for s, o in offs.items()
+                },
+                "aligned": 0,
+            }
+            succ[sn] = {}
+            pred[sn] = {}
+            d = {"paths": set(pospaths), "ofrom": "+", "oto": "+"}
+            succ[mn][sn] = d
+            pred[sn][mn] = d
+        else:
+            sn = mn
+        for to in succ[node]:
+            del pred[to][node]
+        for fr in pred[node]:
+            del succ[fr][node]
+        del succ[node]
+        del pred[node]
+        del nodes[node]
+        for fro, d in in_items:
+            nd = dict(d)
+            succ[fro][pn] = nd
+            pred[pn][fro] = nd
+        for to, d in out_items:
+            nd = dict(d)
+            succ[sn][to] = nd
+            pred[to][sn] = nd
+        return mn
+
+    for rec in anchors.tolist():
+        l = rec[0]
+        w = rec[1]
+        ordp = rec[4]
+        pos = rec[5:5 + D]
+        beg = rec[5 + D:5 + 2 * D]
+        end = rec[5 + 2 * D:5 + 3 * D]
+        # break order = the pick's coord order (SA-window order, packed
+        # 4 bits per sample in ordpack) — graphalign's hit order
+        mns = []
+        for j in range(w):
+            d = (ordp >> (4 * j)) & 15
+            mns.append(brk((beg[d], end[d]), pos[d], l))
+        refnode = mns[0]
+        da = nodes[refnode]
+        newoffsets = dict(da["offsets"])
+        for mn in mns[1:]:
+            newoffsets.update(nodes[mn]["offsets"])
+        da["offsets"] = newoffsets
+        da["aligned"] = 1
+        sa_ = succ[refnode]
+        pa_ = pred[refnode]
+        for mn in mns[1:]:
+            for u, d in pred[mn].items():
+                if u in pa_:
+                    pa_[u]["paths"] |= d["paths"]
+                else:
+                    nd = dict(d)
+                    succ[u][refnode] = nd
+                    pa_[u] = nd
+                del succ[u][mn]
+            for v, d in succ[mn].items():
+                if v in sa_:
+                    sa_[v]["paths"] |= d["paths"]
+                else:
+                    nd = dict(d)
+                    sa_[v] = nd
+                    pred[v][refnode] = nd
+                del pred[v][mn]
+            del succ[mn]
+            del pred[mn]
+            del nodes[mn]
+
+
+def _rem_device_multi_loop(
+    G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: PickerConfig,
+    device,
+):
+    """Whole-recursion multi device fast path (devloop_multi.rem_device_multi):
+    the complete multi-genome recursion as one level loop on ``device``,
+    then the anchor-replay graph surgery in serial LIFO pop order — GFA
+    byte-identical to the per-step engine's.  Returns the anchor count,
+    or None when ineligible/aborted (the caller declines the input)."""
+    elig = _multi_fast_eligible(G, root, cfg)
+    if elig is None:
+        return None
+    path_ivs, path_samples = elig
+
+    main = root.main
+    # the root's multiMUM count sizes the candidate and chain capacities
+    arrs = root.getmultimums_arrays(minlength=cfg.minlength, minn=cfg.minn)
+    if arrs is None:
+        raise RuntimeError("the native multiMUM enumeration "
+                           "(reveal_tpu_torch/native) failed to load")
+    nroot = len(arrs[0])
+    res = devloop_multi.rem_device_multi(
+        main.T,
+        root.SA,
+        root.LCP,
+        path_ivs,
+        path_samples,
+        cfg.minlength,
+        cfg.minn,
+        cfg.maxmums,
+        int(cfg.wscore),
+        int(cfg.wpen),
+        root_mums=max(64, int(nroot)),
+        device=device,
+    )
+    if res is None:
+        return None
+    anchors, T_out, levels = res
+    main.T[:] = T_out
+    _rem_multi_replay(G, anchors, len(path_ivs))
+    log.debug(
+        "device multi loop: %d anchors in %d levels, graph replayed",
+        len(anchors),
+        levels,
+    )
+    return len(anchors)
+
+
+def align_seqs(
+    aobjs: List[Tuple[str, str]],
+    minlength: int = 20,
+    minn: int = 2,
+    seedsize: int = 0,
+    maxmums: int = 10000,
+    wpen: float = 1,
+    wscore: float = 1,
+    pcutoff: float = 1e-8,
+    gcmodel: str = "sumofpairs",
+    maxsize: Optional[int] = None,
+    trim: bool = True,
+    backend: str = "auto",
+    device="cuda",
+):
+    """In-memory multi-alignment of (name, seq) tuples -> (G, idx).
+
+    Mirrors rem.align (rem.py:616-712): one shared start/end marker node,
+    prune_nodes afterwards, markers removed before returning.
+
+    The recursion runs on ``device`` as ``align_seqs(..., frontier=True)``
+    of the reference routes it (``_align_frontier``): the multi-genome
+    loop for three or more sequences, the host prefix and device forest
+    for two.  Only on the CPU does a declined input finish on the serial
+    host engine; on a CUDA device it raises.
+    """
+    ts = TextStore()
+    t = IntervalIndex()
+    G = PanGraph()
+
+    startnode = uuid.uuid4().hex
+    endnode = uuid.uuid4().hex
+    G.add_node(startnode)
+    G.add_node(endnode)
+
+    root_nodes = set()
+    for name, seq in aobjs:
+        ts.add_sample(name)
+        iv = ts.add_sequence(seq.upper())
+        if iv[1] - iv[0] > 0:
+            t.add(iv)
+            sid = len(G.graph["paths"])
+            G.graph["path2id"][name] = sid
+            G.graph["id2path"][sid] = name
+            G.graph["id2end"][sid] = len(seq)
+            G.graph["paths"].append(name)
+            G.add_node(iv, offsets={sid: 0}, aligned=0)
+            G.add_edge(startnode, iv, paths={sid}, ofrom="+", oto="+")
+            G.add_edge(iv, endnode, paths={sid}, ofrom="+", oto="+")
+            root_nodes.add(iv)
+
+    idx = ESAIndex.construct(ts, backend=backend)
+    idx.nodes = root_nodes
+
+    cfg = PickerConfig(
+        minlength=minlength,
+        minn=minn,
+        maxmums=maxmums,
+        wpen=wpen,
+        wscore=wscore,
+        seedsize=seedsize,
+        pcutoff=pcutoff,
+        gcmodel=gcmodel,
+        maxsize=maxsize,
+        trim=trim,
+    )
+    _align_frontier(G, t, idx, cfg, resolve_device(device))
+
+    prune_nodes(G, T=idx.main.T)
+
+    G.remove_node(startnode)
+    G.remove_node(endnode)
     return G, idx

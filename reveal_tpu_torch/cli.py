@@ -1,14 +1,21 @@
 """Command line of the torch port.
 
-    python -m reveal_tpu_torch.cli rem A.fa B.fa [--frontier] \\
-        [--device cuda|cpu] [-m MINLENGTH] [-o out.gfa]
+    python -m reveal_tpu_torch.cli rem A.fa B.fa [C.fa ...] [--frontier] \\
+        [--device cuda|cpu] [-m MINLENGTH] [-n MINN] [--maxmums N] \\
+        [--wpen W] [--wscore W] [--pcutoff P] [-o out.gfa]
     python -m reveal_tpu_torch.cli refine G.gfa --all|--simple|--complex \\
         [--device cuda|cpu] [-o out.gfa] [refine options]
 
-Pairwise ``rem --frontier`` (the flag is accepted and always on): the
-residual recursion runs on ``--device`` (default ``cuda``; without a
-card that is an error, never a quiet switch to the CPU).  The GFA and
-the identity log line are those of ``python -m reveal_tpu.cli rem``.
+``rem --frontier`` (the flag is accepted and always on) runs the
+recursion on ``--device`` (default ``cuda``; without a card that is an
+error, never a quiet switch to the CPU): two fastas through the native
+host prefix and the device forest, three or more (up to 8 contig paths)
+through the multi-genome device loop.  An input the multi loop declines
+(a segment with more than ``--maxmums`` candidates, which bacterial-scale
+inputs have at the default of 10,000, or a capacity it cannot meet)
+raises on the card; only ``--device cpu`` finishes such an input on the
+host engine.  The GFA and the identity log line are those of ``python -m
+reveal_tpu.cli rem``.
 
 ``refine`` (alias ``realign``) realigns bubbles with the pair-HMM
 consistency MSA.  On a card (``--device cuda``) the posteriors, MEA
@@ -31,6 +38,7 @@ log = logging.getLogger(__name__)
 
 
 def rem_cmd(args):
+    from .align.graphops import prune_nodes
     from .align.rem import align_genomes
     from .core.io_gfa import seq2node, write_gfa
 
@@ -38,6 +46,11 @@ def rem_cmd(args):
         args.inputfiles,
         device=args.device,
         minlength=args.minlength,
+        minn=args.minn,
+        maxmums=args.maxmums,
+        wpen=args.wpen,
+        wscore=args.wscore,
+        pcutoff=args.pcutoff,
     )
     if args.output is None:
         pref = []
@@ -47,8 +60,10 @@ def rem_cmd(args):
         args.output = "_".join(pref) + ".gfa.gz"
 
     T = idx.main.T
+    if len(G.graph["paths"]) > 2:
+        prune_nodes(G, T=T)
     seq2node(G, T)
-    # identity stats (reveal_tpu/cli.py rem_cmd, pairwise case)
+    # identity stats (reveal_tpu/cli.py rem_cmd)
     totbases = (
         idx.main.nT
         - int((T == ord("$")).sum())
@@ -56,10 +71,20 @@ def rem_cmd(args):
         - int((T == ord("n")).sum())
     )
     alignedbases = alignednodes = 0
+    nsamples = idx.main.nsamples
     for n, d in G.nodes.items():
         if isinstance(n, str) or d.get("aligned", 0) == 0:
             continue
-        alignedbases += (n[1] - n[0]) * 2
+        if nsamples > 2:
+            alignedbases += (n[1] - n[0]) * len(
+                [
+                    k
+                    for k in d["offsets"]
+                    if not G.graph["id2path"][k].startswith("*")
+                ]
+            )
+        else:
+            alignedbases += (n[1] - n[0]) * 2
         alignednodes += 1
     log.info(
         "%s (%.2f%% identity, %d bases out of %d aligned, %d nodes aligned).",
@@ -140,15 +165,23 @@ def refine_cmd(args):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="python -m reveal_tpu_torch.cli",
-        description="reveal-tpu on PyTorch/CUDA (pairwise rem --frontier, refine)",
+        description="reveal-tpu on PyTorch/CUDA (rem --frontier, refine)",
     )
     p.add_argument(
         "-l", "--log-level", dest="loglevel", type=int, default=20,
         help="Log level: 10=debug 20=info 30=warn 40=error.",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("rem", help="Align two fasta files into a GFA.")
-    r.add_argument("inputfiles", nargs="+", help="Two fasta files.")
+    r = sub.add_parser(
+        "rem", help="Align two or more fasta files into a GFA.",
+        description="Two fastas: native host prefix, then the device "
+        "forest.  Three or more (up to 8 contig paths): the multi-genome "
+        "device loop, which declines (and on a card raises) inputs with "
+        "a segment of more than --maxmums candidates: at the default "
+        "10,000, about 100 kbp a genome at six genomes (bacterial-scale "
+        "multi inputs are not covered yet).",
+    )
+    r.add_argument("inputfiles", nargs="+", help="Two or more fasta files.")
     r.add_argument(
         "--frontier", action="store_true",
         help="Accepted for compatibility with reveal_tpu's CLI; the "
@@ -157,12 +190,23 @@ def build_parser():
     )
     r.add_argument(
         "--device", default="cuda",
-        help="Torch device of the forest recursion: cuda (default) or cpu.",
+        help="Torch device of the recursion: cuda (default) or cpu.",
     )
     r.add_argument(
-        "-m", dest="minlength", type=int, default=20,
+        "-m", "--minlength", dest="minlength", type=int, default=20,
         help="Min length of an exact match (default 20).",
     )
+    r.add_argument("-n", "--minn", type=int, default=2,
+                   help="Min number of samples a multiMUM spans (default 2).")
+    r.add_argument("--maxmums", type=int, default=10000,
+                   help="Max candidates of one segment (default 10000); "
+                        "the multi loop declines a segment with more.")
+    r.add_argument("--wpen", "--wp", type=int, default=1,
+                   help="Chaining gap-penalty weight (default 1).")
+    r.add_argument("--wscore", "--ws", type=int, default=1,
+                   help="Chaining match-score weight (default 1).")
+    r.add_argument("--pcutoff", type=float, default=1e-8,
+                   help="P-value cutoff of an anchor (default 1e-8).")
     r.add_argument("-o", "--output", dest="output", default=None,
                    help="Output GFA (default: <a>_<b>.gfa.gz).")
     r.set_defaults(func=rem_cmd)

@@ -123,53 +123,54 @@ def forest_pop_order(parents: np.ndarray, cls: np.ndarray):
 # scan and sort helpers (devloop.py:242-282)
 # ----------------------------------------------------------------------
 def associative_scan(combine, elems):
-    """Inclusive scan of a tuple of equal-length 1-D tensors.
+    """Inclusive scan along dim 0 of a tuple of equal-shape tensors of
+    one dtype.
 
     The recursion is ``jax.lax.associative_scan``'s (combine adjacent
     pairs, scan the halves, fill in the even positions), so each output
     is combined in the same order as in JAX.  That makes it bit-exact
     even for trim's clamped-subtract combine, whose int32 sums can wrap
-    and is then not strictly associative."""
-    elems = tuple(elems)
-    n = elems[0].shape[0]
+    and is then not strictly associative.  The tensors travel stacked
+    along dim 1 of one tensor, so a level moves them all at once."""
+    return _scan_columns(combine, torch.stack(tuple(elems), 1)).unbind(1)
+
+
+def _scan_columns(combine, E):
+    n = E.shape[0]
     if n < 2:
-        return elems
-    reduced = combine(
-        tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems)
-    )
-    odd = associative_scan(combine, reduced)
-    if n % 2 == 0:
-        even = combine(
-            tuple(e[:-1] for e in odd), tuple(e[2::2] for e in elems)
-        )
-    else:
-        even = combine(odd, tuple(e[2::2] for e in elems))
-    out = []
-    for e, ev, od in zip(elems, even, odd):
-        r = torch.empty_like(e)
-        r[0] = e[0]
-        r[2::2] = ev
-        r[1::2] = od
-        out.append(r)
-    return tuple(out)
+        return E
+
+    def comb(a, b):
+        return torch.stack(combine(a.unbind(1), b.unbind(1)), 1)
+
+    odd = _scan_columns(combine, comb(E[0:-1:2], E[1::2]))
+    even = comb(odd[:-1] if n % 2 == 0 else odd, E[2::2])
+    r = torch.empty_like(E)
+    r[0] = E[0]
+    r[2::2] = even
+    r[1::2] = odd
+    return r
 
 
 def seg_min_scan(values, reset):
-    """Running minimum restarted where ``reset`` is set."""
+    """Running minimum along dim 0 restarted where ``reset`` is set
+    (``values`` 1-D, or 2-D for several columns at once)."""
     def combine(x, y):
         (m1, f1), (m2, f2) = x, y
-        return torch.where(f2, m2, torch.minimum(m1, m2)), f1 | f2
+        return torch.where(f2 > 0, m2, torch.minimum(m1, m2)), f1 | f2
 
-    return associative_scan(combine, (values, reset))[0]
+    return associative_scan(combine, (values, reset.to(values.dtype)))[0]
 
 
 def last_value_scan(values, flags):
-    """Per row: last value at or before it whose flag is set."""
-    def combine(x, y):
-        (v1, f1), (v2, f2) = x, y
-        return torch.where(f2, v2, v1), f1 | f2
-
-    return associative_scan(combine, (values, flags))[0]
+    """Per row along dim 0: the value of the last row at or before it
+    whose flag is set, else of row 0 (the JAX code's associative scan of
+    a selection, which is exact in any order): one cumulative maximum of
+    the flagged rows' indices.  Only for candidate-sized arrays: torch's
+    cummax runs a long 1-D array in one block."""
+    n = values.shape[0]
+    idx = torch.where(flags, torch.arange(n, device=values.device), 0)
+    return values[torch.cummax(idx, 0).values]
 
 
 def sort_by(keys, vals):
@@ -716,6 +717,19 @@ def split_level(T, SA, LCP, BWT, SEG, picked, s_ma, s_mb, s_l, seg_tab,
 # ----------------------------------------------------------------------
 # boundary repair (bubble_sort, reveal.c:666-727; devloop.py:1297-1632)
 # ----------------------------------------------------------------------
+class HostReads:
+    """Counted device-to-host reads: one object counts every read of a
+    dispatch, its repair passes' included."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, t):
+        """``t`` as Python values: one counted read."""
+        self.n += 1
+        return t.tolist()
+
+
 @dataclass
 class RepairQueue:
     """The crossing suffixes of one repair pass."""
@@ -725,6 +739,7 @@ class RepairQueue:
     SEG: torch.Tensor           # (npad,) segment id per slot
     SMAX: int
     WREP: int
+    host: HostReads             # counts the pass's reads
 
 
 def resolve(SA, LCP, rq: RepairQueue, j: int):
@@ -732,10 +747,8 @@ def resolve(SA, LCP, rq: RepairQueue, j: int):
     resolve): returns (q, x, move, thr, saq, lcq) as Python ints.  The
     insertion-point search x = max y < q with LCP[y] < thr scans a
     WREP window, with a whole-array scan for the deep tail."""
-    q = int(rq.cq[j])
-    b = int(rq.beg[q])
-    saq = int(SA[q])
-    lcq = int(LCP[q])
+    q = rq.host(rq.cq[j])
+    b, saq, lcq = rq.host(torch.stack([rq.beg[q], SA[q], LCP[q]]))
     thr = b - saq
     move = saq < b and saq + lcq > b
     WREP = rq.WREP
@@ -743,49 +756,60 @@ def resolve(SA, LCP, rq: RepairQueue, j: int):
     win = dynamic_slice(LCP, s0, WREP + 2)
     widx = s0 + arange32(WREP + 2, LCP.device)
     cand = (widx < q) & (win < thr)
-    y = int(torch.where(cand, widx, -1).max())
+    y = rq.host(torch.where(cand, widx, -1).max())
     found = y >= 0 or s0 == 0
     if move and not found:
         iar_n = arange32(LCP.shape[0], LCP.device)
-        y = int(torch.where((iar_n < q) & (LCP < thr), iar_n, -1).max())
+        y = rq.host(torch.where((iar_n < q) & (LCP < thr), iar_n, -1).max())
     return q, max(y, 0), move, thr, saq, lcq
 
 
-def apply_one(SA, LCP, BWT, rq: RepairQueue, q, x, move, thr, saq, lcq,
-              bwq, j, acc):
+def apply_one(SA, LCP, moved, rq: RepairQueue, q, x, move, thr, saq, lcq,
+              mvals, j, acc):
     """Apply one candidate in place: rotate slots (x, q] right by one
-    and insert the mover at x (SA, BWT) with LCP[x+1] = thr, then the
-    LCP[q+1] update.  (The JAX kernel's window and whole-array branches
-    compute this same rotation.)"""
+    and insert the mover at x (SA and every array of ``moved``, whose
+    values at q are ``mvals``) with LCP[x+1] = thr, then the LCP[q+1]
+    update.  (The JAX kernel's window and whole-array branches compute
+    this same rotation.)"""
     npad = SA.shape[0]
     do_mv = acc and move
+    # one slot is written by fill_: assigning a Python number to a slot
+    # of a card tensor copies it from host memory, and that copy waits
+    # for the card
     if do_mv:
-        for arr, v in ((SA, saq), (BWT, bwq)):
+        for arr, v in zip((SA,) + tuple(moved), (saq,) + tuple(mvals)):
             arr[x + 1:q + 1] = arr[x:q].clone()
-            arr[x] = v
+            arr[x].fill_(v)
         LCP[x + 1:q + 1] = LCP[x:q].clone()
-        LCP[x + 1] = thr
+        LCP[x + 1].fill_(thr)
     qn = min(q + 1, npad - 1)
-    lcp_qn = int(LCP[qn])
-    b = int(rq.beg[q])
+    lcp_qn, cnext, lcp_q = rq.host(
+        torch.stack([LCP[qn], rq.centry_next[j], LCP[q]]))
+    b = thr + saq
     mv_upd = do_mv and q < npad - 1 and lcq < lcp_qn
     lcponly = (
         acc and not move and q < npad - 1 and saq < b
-        and saq + int(rq.centry_next[j]) > b and lcp_qn > int(LCP[q])
+        and saq + cnext > b and lcp_qn > lcp_q
     )
-    LCP[qn] = lcq if mv_upd else (b - saq if lcponly else lcp_qn)
-    return SA, LCP, BWT
+    LCP[qn].fill_(lcq if mv_upd else (b - saq if lcponly else lcp_qn))
+    return SA, LCP, moved
 
 
-def repair_round(SA, LCP, BWT, pend, rq: RepairQueue, stats):
-    """One whole-batch repair round (``rbody``).
+def repair_round(SA, LCP, moved, pend, rq: RepairQueue, stats, search):
+    """One whole-batch repair round (``rbody``); at least one candidate
+    is pending.
 
-    The first RBV pending candidates are resolved at once through the
-    window-resolve kernel; every candidate whose edit region is
-    disjoint from its same-segment predecessor's is applied in one
-    masked-shift + scatter pass (``vec_branch``).  A round that accepts
-    nothing (the head is a window-miss mover) applies the head alone by
-    the exact sequential resolve (``seq_branch``)."""
+    ``moved`` are the per-slot arrays that move with SA: (BWT,) in the
+    pairwise forest, (BWT, SOA) in the multi-genome loop.  The first RBV
+    pending candidates are resolved at once through ``search`` (the
+    window-resolve kernel's wrapper, or its plain version); every
+    candidate whose edit region is disjoint from its same-segment
+    predecessor's is applied in one masked-shift + scatter pass
+    (``vec_branch``).  A round that accepts nothing (the head is a
+    window-miss mover) applies the head alone by the exact sequential
+    resolve (``seq_branch``).  Returns (SA, LCP, moved, pend, more) with
+    more = whether a candidate is still pending (read with the round's
+    one host read, so that no round runs empty)."""
     npad = SA.shape[0]
     CCAP = rq.cq.shape[0]
     RBV = min(CCAP, 1024)
@@ -800,7 +824,7 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue, stats):
     lcq = take(LCP, q)
     thr = b - saq
     move = (saq < b) & (saq + lcq > b)
-    y = window_resolve_plain(LCP, q, thr, _WRV)
+    y = search(LCP, q, thr, _WRV)
     # a window hit IS the global max y; a clipped window (q <= WRV)
     # that misses means x = 0 exactly
     resolved = (y >= 0) | (q - _WRV <= 0)
@@ -818,7 +842,8 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue, stats):
     region_lo = torch.where(move, x, q)
     acc = hvalid & ok & (region_lo > q_prev + 1)
 
-    if bool(acc.any()):
+    npend_h, nacc = rq.host(torch.stack([npend, acc.sum(dtype=I32)]))
+    if nacc:
         accm = acc & move
         fillu = npad + iar_r
         xs = torch.where(accm, x, fillu)
@@ -827,12 +852,20 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue, stats):
         d.index_add_(0, xs1, torch.ones_like(q))
         d.index_add_(0, torch.where(accm, q + 1, fillu), -torch.ones_like(q))
         inrot = cumsum32(d[:npad]) > 0
-        SA2 = torch.where(inrot, shift1(SA, 0), SA)
-        BWT2 = torch.where(inrot, shift1(BWT, 0), BWT)
-        LCP2 = torch.where(inrot, shift1(LCP, 0), LCP)
-        SA2 = scatter_drop(SA2, xs, saq)
-        BWT2 = scatter_drop(BWT2, xs, take(BWT, q))
-        LCP2 = scatter_drop(LCP2, xs1, thr)
+        # SA, the moved arrays and LCP as the rows of one state, each
+        # rotated right by one inside the accepted windows (slot 0 is
+        # never in one, so roll's wrap is never taken), then written
+        # through spill columns past npad
+        state = torch.stack((SA,) + tuple(moved) + (LCP,))
+        C = state.shape[0]
+        buf = torch.cat([
+            torch.where(inrot, torch.roll(state, 1, 1), state),
+            state.new_zeros((C, RBV)),
+        ], 1)
+        # the movers at x (SA and the moved arrays), LCP[x+1] = thr
+        buf[:C - 1].index_copy_(1, xs.long(),
+                                state.index_select(1, q)[:C - 1])
+        buf[C - 1].index_copy_(0, xs1.long(), thr)
         # LCP[q+1] updates (outside every rotation window, so
         # round-start values are live)
         qn = (q + 1).clamp(max=npad - 1)
@@ -845,52 +878,71 @@ def repair_round(SA, LCP, BWT, pend, rq: RepairQueue, stats):
         newv = torch.where(
             mv_upd, lcq, torch.where(lcponly, b - saq, lcp_qn)
         )
-        LCP2 = scatter_drop(
-            LCP2, torch.where(mv_upd | lcponly, qn, fillu), newv
-        )
+        buf[C - 1].index_copy_(
+            0, torch.where(mv_upd | lcponly, qn, fillu).long(), newv)
         pend = scatter_drop(pend, torch.where(acc, heads, CCAP + iar_r),
                             False)
         stats[2] += torch.where(accm, q - x, 0).sum()
-        return SA2, LCP2, BWT2, pend
+        return (buf[0, :npad], buf[C - 1, :npad],
+                tuple(buf[k, :npad] for k in range(1, C - 1)), pend,
+                npend_h > nacc)
 
-    j = int(heads[0])
+    j, valid0 = rq.host(torch.stack([heads[0], hvalid[0].to(I32)]))
     q1, x1, mv1, thr1, saq1, lcq1 = resolve(SA, LCP, rq, j)
-    SA, LCP, BWT = apply_one(
-        SA, LCP, BWT, rq, q1, x1, mv1, thr1, saq1, lcq1, int(BWT[q1]), j,
-        bool(hvalid[0]),
+    mvals = rq.host(torch.stack([m[q1] for m in moved]))
+    SA, LCP, moved = apply_one(
+        SA, LCP, moved, rq, q1, x1, mv1, thr1, saq1, lcq1, mvals, j,
+        bool(valid0),
     )
     if mv1:
         stats[2] += q1 - x1
     pend = pend.clone()
-    pend[j] = False
-    return SA, LCP, BWT, pend
+    pend[j].fill_(False)
+    return SA, LCP, moved, pend, npend_h > 1
 
 
-def repair_rounds_plain(SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX,
-                        stats):
-    """Plain version of ``repair.repair_segments``: the pass's crossing
-    suffixes ``cq[:min(rc, CCAP)]`` applied by batched repair rounds (the
-    JAX kernel's ``while_loop`` over ``rbody``), one host sync a round.
-    Adds to ``stats`` as the kernel does.  Returns (SA, LCP, BWT,
-    rounds)."""
+def repair_rounds(SA, LCP, moved, SEG, beg, cq, centry_next, rc, SMAX,
+                  stats, search, reads):
+    """The pass's crossing suffixes ``cq[:min(rc, CCAP)]`` applied by
+    batched repair rounds (the JAX kernel's ``while_loop`` over
+    ``rbody``), ``moved`` moving with SA and the insertion points found
+    by ``search``.  Adds to ``stats`` as the repair kernel does and its
+    host reads to ``reads`` (a ``HostReads``).
+    Returns (SA, LCP, moved, rounds)."""
     npad = SA.shape[0]
     CCAP = cq.shape[0]
     rq = RepairQueue(
         cq=cq, centry_next=centry_next, beg=beg, SEG=SEG, SMAX=SMAX,
         # repair window: full-array on tiny inputs (always exact there)
-        WREP=min(_WREP, npad - 2),
+        WREP=min(_WREP, npad - 2), host=reads,
     )
-    n = int(rc.clamp(max=CCAP))
-    if n:
-        runs = torch.unique_consecutive(take(SEG, cq[:n]),
-                                        return_counts=True)[1]
-        stats[0] += n
-        stats[1] = torch.maximum(stats[1], runs.max())
+    n = rq.host(rc.clamp(max=CCAP))
+    if n == 0:
+        return SA, LCP, moved, 0
+    # unique_consecutive sizes its output on the host: a read
+    runs = torch.unique_consecutive(take(SEG, cq[:n]), return_counts=True)[1]
+    reads.n += 1
+    stats[0] += n
+    stats[1] = torch.maximum(stats[1], runs.max())
     pend = arange32(CCAP, SA.device) < n
     rounds = 0
-    while rounds < CCAP and bool(pend.any()):
-        SA, LCP, BWT, pend = repair_round(SA, LCP, BWT, pend, rq, stats)
+    more = True
+    while more and rounds < CCAP:
+        SA, LCP, moved, pend, more = repair_round(SA, LCP, moved, pend, rq,
+                                                  stats, search)
         rounds += 1
+    return SA, LCP, moved, rounds
+
+
+def repair_rounds_plain(SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX,
+                        stats):
+    """Plain version of ``repair.repair_segments``: ``repair_rounds``
+    with the plain insertion-point search.
+    Returns (SA, LCP, BWT, rounds)."""
+    SA, LCP, (BWT,), rounds = repair_rounds(
+        SA, LCP, (BWT,), SEG, beg, cq, centry_next, rc, SMAX, stats,
+        window_resolve_plain, HostReads(),
+    )
     return SA, LCP, BWT, rounds
 
 

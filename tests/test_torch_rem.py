@@ -145,7 +145,7 @@ def test_resolve_device(monkeypatch):
         port_rem.align_genomes(["a.fa", "b.fa"], device="cuda")
 
 
-def test_uncovered_inputs_raise(tmp_path):
+def _three_fastas(tmp_path):
     rng = np.random.default_rng(17)
     c1 = "".join(rng.choice(list("ACGT"), size=900))
     c2 = "".join(rng.choice(list("ACGT"), size=700))
@@ -153,8 +153,14 @@ def test_uncovered_inputs_raise(tmp_path):
     fasta_writer(fa[0], [("x1", c1)])
     fasta_writer(fa[1], [("y1", c1[:800] + c2[:50])])
     fasta_writer(fa[2], [("z1", c1), ("z2", c2)])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        port_rem.align_genomes(fa, device="cpu")
+    return fa
+
+
+def test_uncovered_inputs_raise(tmp_path):
+    fa = _three_fastas(tmp_path)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        port_rem.align_genomes([fa[0], str(tmp_path / "g.gfa")],
+                               device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         port_rem.align_genomes([fa[0], fa[2]], device="cpu")
     with pytest.raises(NotImplementedError, match="--notrim"):
@@ -163,6 +169,55 @@ def test_uncovered_inputs_raise(tmp_path):
         port_rem.align_genomes(fa[:2], device="cpu", frontier=False)
     with pytest.raises(ValueError):
         port_rem.align_genomes(fa[:1], device="cpu")
+
+
+def test_three_fastas_match_the_host_engine(tmp_path):
+    """Three samples, one of two contigs (once uncovered, item 6): the
+    multi-genome loop on the CPU writes the host engine's GFA."""
+    from reveal_tpu.align.graphops import prune_nodes as jax_prune
+    from reveal_tpu_torch.align.graphops import prune_nodes
+    from reveal_tpu_torch.core.io_gfa import seq2node as p_s2n
+    from reveal_tpu_torch.core.io_gfa import write_gfa as p_wg
+    from reveal_tpu_torch.index import devloop_multi
+
+    fa = _three_fastas(tmp_path)
+    G, idx = jax_rem.align_genomes(fa, backend="auto")
+    jax_prune(G, T=idx.main.T)
+    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    G, idx = port_rem.align_genomes(fa, device="cpu")
+    st = dict(devloop_multi.LAST_STATS)
+    assert st["abort"] == 0 and st["fallback"] is None and st["paths"] == 4
+    prune_nodes(G, T=idx.main.T)
+    p_s2n(G, idx.main.T)
+    p_wg(G, idx.main.T, outputfile=str(tmp_path / "port.gfa"))
+    with open(tmp_path / "port.gfa", "rb") as fh:
+        assert fh.read() == host
+
+
+def test_cli_flags_match_the_reveal_tpu_cli(tmp_path):
+    """Non-default -m, -n, --maxmums, --wscore, --wpen and --pcutoff
+    reach the pairwise route: the port's GFA equals ``python -m
+    reveal_tpu.cli rem --frontier``'s with the same flags, and differs
+    from the default one."""
+    import reveal_tpu.cli as jax_cli
+    from reveal_tpu_torch import cli as port_cli
+
+    fastas = _write_pair(tmp_path, 30_000, seed=11)
+    flags = ["-m", "16", "-n", "2", "--maxmums", "10", "--wscore", "2",
+             "--wpen", "3", "--pcutoff", "1e-6"]
+    out = {}
+    for name, argv, main in (
+            ("ref", ["--frontier", *flags], jax_cli.main),
+            ("port", ["--frontier", "--device", "cpu", *flags],
+             port_cli.main),
+            ("default", ["--device", "cpu"], port_cli.main)):
+        fn = str(tmp_path / (name + ".gfa"))
+        main(["rem", *fastas, *argv, "-o", fn])
+        with open(fn, "rb") as fh:
+            out[name] = fh.read()
+    assert devloop.LAST_STATS["abort"] == 0
+    assert out["port"] == out["ref"]
+    assert out["port"] != out["default"]
 
 
 def test_kernel_abort_falls_back_to_host_engine(tmp_path, monkeypatch):

@@ -188,7 +188,10 @@ COPIED = {
     "align.rem": [
         "graphalign", "_enum_pick", "_pairwise_fast_eligible",
         "_rem2_native_loop", "_rem2_replay_native", "_rem2_replay",
-        "_align_loop", "read_fasta_into"],
+        "_align_loop", "read_fasta_into", "_multi_fast_eligible",
+        "_rem_multi_replay"],
+    # "port module:original module" where the port moved a function
+    "index.devloop_multi:index.devloop": ["forest_pop_order_multi"],
     "utils.simulate": ["mutate", "simulate_population"],
     "hmm.pairhmm": [
         "_emission_tables", "_log_params", "_pad_with_dummy", "_bucket",
@@ -212,8 +215,11 @@ COPIED = {
     ids=lambda v: v,
 )
 def test_copied_function_equals_original(mod, name):
-    orig = getattr(importlib.import_module("reveal_tpu." + mod), name)
-    port = getattr(importlib.import_module("reveal_tpu_torch." + mod), name)
+    port_mod, _, orig_mod = mod.partition(":")
+    orig = getattr(importlib.import_module("reveal_tpu." + (orig_mod or
+                                                            port_mod)), name)
+    port = getattr(importlib.import_module("reveal_tpu_torch." + port_mod),
+                   name)
     assert inspect.getsource(port) == _norm(inspect.getsource(orig))
 
 
@@ -282,6 +288,25 @@ CHANGED = {
     ],
     # the device option, and the output path returned
     ("cli", "refine_cmd"): [],
+    # the loop runs on a device given; no environment switch; the root's
+    # multiMUM count is computed, not guessed when it fails
+    ("align.rem", "_rem_device_multi_loop"): [
+        ("G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: "
+         "PickerConfig",) * 2,
+        ('"""Whole-recursion multi device fast path',
+         'or None when ineligible/aborted (caller falls back)."""'),
+        ('if os.environ.get("REVEAL_TPU_DISABLE_DEVLOOP"):', "return None"),
+        ("from ..index.devloop import rem_device_multi",) * 2,
+        ("try:", "nroot = 256"),
+        ("res = rem_device_multi(",) * 2,
+    ],
+    # the device route only (frontier=True's, on a device given): no
+    # frontier or threads switch, no mesh, the serial host engine and the
+    # level-parallel host loop are not entry points here
+    ("align.rem", "align_seqs"): [
+        ("threads: int = 0,", "mesh=None,"),
+        ("if frontier or mesh is not None:", "_align_loop(G, t, idx, cfg)"),
+    ],
 }
 
 
