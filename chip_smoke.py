@@ -1,12 +1,14 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi] [--tree DIR]
+                          [--only kernels|profile|multi|frontier]
+                          [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
 and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
-phases 1-2, the window-resolve checks of phase 3 and phase 5c.
+phases 1-2, the window-resolve checks of phase 3 and phase 5c;
+``--only frontier`` phases 1-2 and 5d.
 ``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
 instead of this one (with ``--only profile``: the parent's forest timed
 beside this one's, in turns, on one card in one go).
@@ -59,9 +61,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the loop's stages, with torch's sync debug mode putting every host
    sync to the line of the port that made it, and with every repair
    round's window-resolve held exactly against its plain version
-   (plain, kernel, kernel, plain; CUDA events).  Then
-   6 x 1 Mbp, past ``--maxmums``, must raise naming ``ABORT_MAXMUMS``
-   and item 8 without running the host engine;
+   (plain, kernel, kernel, plain; CUDA events);
+5d. the per-level device frontier (no kernel of its own: torch stages
+   and the native repair walk) through ``cli rem --frontier --device
+   cuda``, the host engine refused inside it, node state and text held
+   against the port's host engine and every path of the GFA spelling its
+   input: (a) ``simulate_population(6, 1_000_000, seed)``, past
+   ``--maxmums``: the multi loop declines (``ABORT_MAXMUMS``) and the
+   frontier takes it; once more under ``torch.profiler`` (launches, host
+   syncs, busy share); (b) a 2 x 2 Mbp pair, each genome cut into contigs
+   of 1.9 Mbp, 80 kbp and the rest; (c) nine paths of 50 kbp, past the
+   multi loop's eight; (d) 4 x 50 kbp forced onto the frontier on the
+   card and on the CPU, at the defaults and with ``--notrim``: equal GFA
+   bytes;
 6. ``refine``: a six-path chain of bubbles (64 with alleles near 500 bp,
    8 near 1900 bp, 10-15% substitutions and indels up to 12 bp between
    alleles) written from ``--seed``, through ``cli refine --all
@@ -1216,32 +1228,36 @@ MULTI_CASES = (
     ("b", 8, 50_000, None),      # D = 8 paths, the loop's full width
     ("c", 3, 300_000, 0),        # 4 paths of 3 samples
 )
-# past the loop's limit: 101,731 root multiMUMs, over --maxmums
-MULTI_DECLINE = (6, 1_000_000)
-
 # the multi loop's stage functions, in the order of a level
 MULTI_STAGES = ("enumerate_multi", "select_subsets", "trim_dim_multi",
                 "same_paths", "chain_dense_multi", "log_anchors_multi",
                 "children_multi", "split_multi", "repair_pass_multi")
 
 
-def write_population(n, length, seed, workdir, split=None):
+def write_population(n, length, seed, workdir, split=None, cuts=None):
     """Fastas of ``simulate_population(n, length, seed)`` in a new
-    directory under ``workdir``, the genome of sample ``split`` cut in
-    two contigs; returns (paths, total bp)."""
+    directory under ``workdir``: the genome of sample ``split`` cut in
+    two contigs, or every genome cut into contigs of the lengths ``cuts``
+    and the rest; returns (paths, total bp, {record name: sequence})."""
     from reveal_tpu_torch.core.io_fasta import fasta_writer
     from reveal_tpu_torch.utils.simulate import simulate_population
 
     wd = tempfile.mkdtemp(dir=workdir, prefix="pop%d_%d_" % (n, length))
-    pop = simulate_population(n, length, seed=seed)
-    fastas = []
-    for i, (name, seq, _ids) in enumerate(pop):
+    fastas, want = [], {}
+    for i, (name, seq, _ids) in enumerate(
+            simulate_population(n, length, seed=seed)):
+        bounds = [0, len(seq) // 2] if i == split else [0]
+        for c in cuts or ():
+            bounds.append(bounds[-1] + c)
+        bounds.append(len(seq))
+        recs = [(name if len(bounds) == 2 else "%s_%d" % (name, k + 1),
+                 seq[lo:hi])
+                for k, (lo, hi) in enumerate(zip(bounds, bounds[1:]))]
         fn = os.path.join(wd, name + ".fa")
-        half = len(seq) // 2
-        fasta_writer(fn, [(name, seq)] if i != split else
-                     [(name + "_1", seq[:half]), (name + "_2", seq[half:])])
+        fasta_writer(fn, recs)
         fastas.append(fn)
-    return fastas, sum(len(seq) for _n, seq, _i in pop)
+        want.update(recs)
+    return fastas, sum(len(v) for v in want.values()), want
 
 
 def host_gfa(fastas, out):
@@ -1435,45 +1451,13 @@ def hold_window_resolve(fastas, workdir):
             "rbv": rounds[0][3], "npad": rounds[0][4], "max_abs_err": worst}
 
 
-def check_decline(seed, workdir):
-    """6 x 1 Mbp at the defaults: the root has more than --maxmums
-    candidates, so ``cli rem --device cuda`` must raise naming
-    ABORT_MAXMUMS and item 8, without running the host engine."""
-    from reveal_tpu_torch import cli
-    from reveal_tpu_torch.align import rem
-    from reveal_tpu_torch.index import devloop_multi
-
-    n, length = MULTI_DECLINE
-    fastas, _bp = write_population(n, length, seed, workdir)
-    host_runs = []
-    host_loop = rem._align_loop
-    rem._align_loop = lambda *a, **k: host_runs.append(a)
-    t0 = time.perf_counter()
-    try:
-        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
-                  os.path.join(workdir, "decline.gfa")])
-    except RuntimeError as err:
-        msg = str(err)
-    else:
-        raise AssertionError("%d x %d bp did not raise" % (n, length))
-    finally:
-        rem._align_loop = host_loop
-    if "ABORT_MAXMUMS" not in msg or "item 8" not in msg or host_runs:
-        raise AssertionError("decline of %d x %d bp: %r (host engine runs: "
-                             "%d)" % (n, length, msg, len(host_runs)))
-    st = devloop_multi.LAST_STATS
-    print("multi decline: %d x %d bp raised in %.6f s (levels %d, loop "
-          "%.6f s), the host engine not run: %s"
-          % (n, length, time.perf_counter() - t0, st["levels"],
-             st["loop_seconds"], msg))
-
-
 def run_multi(seed, workdir):
     """Phase 5c.  Returns the window-resolve row's update: the main
     path's launches (case a) and the kernel's times at its shapes."""
     cases = {}
     for label, n, length, split in MULTI_CASES:
-        fastas, total_bp = write_population(n, length, seed, workdir, split)
+        fastas, total_bp, _want = write_population(n, length, seed, workdir,
+                                                   split)
         st = run_multi_case(label, fastas, total_bp, workdir)
         st["profile"] = profile_multi(label, fastas, workdir)
         cases[label] = (fastas, st)
@@ -1484,7 +1468,6 @@ def run_multi(seed, workdir):
     if held["rounds"] != st_a["launches"]:
         raise AssertionError("the held run made %d rounds, the main run %d"
                              % (held["rounds"], st_a["launches"]))
-    check_decline(seed, workdir)
     return {
         "launches": st_a["launches"],
         "main_path": "rem, 3+ genomes: multi-loop repair rounds",
@@ -1499,6 +1482,189 @@ def run_multi(seed, workdir):
                                        "host", "peak", "profile")}
             for label, (_f, st) in cases.items()},
     }
+
+
+# ----------------------------------------------------------------------
+# phase 5d: the per-level device frontier
+# ----------------------------------------------------------------------
+# (label, genomes, bp a genome, lengths of each genome's contigs but the
+# last, or None for one contig); every case at the CLI's defaults
+FRONTIER_CASES = (
+    # the main case: 101,731 root multiMUMs, past --maxmums, so the multi
+    # loop declines (ABORT_MAXMUMS) and the frontier takes the input
+    ("a", 6, 1_000_000, None),
+    # a bacterial pair with two plasmids: not a forest input
+    ("b", 2, 2_000_000, (1_900_000, 80_000)),
+    # nine paths, past the multi loop's eight
+    ("c", 9, 50_000, None),
+)
+# the card against the CPU on the frontier, at the defaults and --notrim
+FRONTIER_CARD_CPU = (4, 50_000)
+
+
+def node_state(G):
+    """The aligned node set of a graph (tests/test_frontier.py): every
+    interval node with its offsets and aligned flag.  The frontier and
+    the serial engine build the same one; only the GFA's node numbering
+    may differ."""
+    return sorted(
+        (n, tuple(sorted(G.nodes[n]["offsets"].items())),
+         G.nodes[n].get("aligned", 0))
+        for n in G.nodes if isinstance(n, tuple))
+
+
+def _frontier_cli(fastas, out):
+    """``cli rem --device cuda`` with ``align_genomes`` watched (the node
+    state and text it returns, before the CLI prunes) and the host
+    engine refused; returns (what was seen, seconds)."""
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.align import rem
+
+    seen = {}
+    align, host_loop = rem.align_genomes, rem._align_loop
+
+    def watched(*args, **kw):
+        G, idx = align(*args, **kw)
+        seen.update(state=node_state(G), T=idx.main.T.copy(),
+                    all_nodes=len(G.nodes),
+                    nodes=sum(1 for n in G.nodes if isinstance(n, tuple)))
+        return G, idx
+
+    def refused(*_a, **_k):
+        raise AssertionError("the host engine ran inside cli rem")
+
+    rem.align_genomes, rem._align_loop = watched, refused
+    t0 = time.perf_counter()
+    try:
+        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
+                  out])
+    finally:
+        rem.align_genomes, rem._align_loop = align, host_loop
+    return seen, time.perf_counter() - t0
+
+
+def run_frontier_case(label, fastas, total_bp, want, workdir, declines):
+    """One frontier case through ``cli rem --device cuda``: node state
+    and text held against the port's host engine, every path of the GFA
+    spelling its input; ``declines``: the multi loop must have declined
+    first with this abort name.  Returns the frontier's LAST_STATS with
+    the run's numbers."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch.align import rem
+    from reveal_tpu_torch.index import devfrontier, devloop_multi
+
+    t0 = time.perf_counter()
+    G, idx = rem.align_genomes_host(fastas)
+    t_host = time.perf_counter() - t0
+    host_state, host_T = node_state(G), idx.main.T.copy()
+    del G, idx
+    out = os.path.join(workdir, "frontier_%s.gfa" % label)
+    torch.cuda.reset_peak_memory_stats()
+    seen, t_e2e = _frontier_cli(fastas, out)
+    st = dict(devfrontier.LAST_STATS, e2e=t_e2e, host=t_host,
+              peak=torch.cuda.max_memory_allocated(), nodes=seen["nodes"],
+              all_nodes=seen["all_nodes"])
+    multi = dict(devloop_multi.LAST_STATS)
+    if seen["state"] != host_state:
+        raise AssertionError("frontier case %s: node state differs from the "
+                             "host engine's (%d against %d nodes)"
+                             % (label, len(seen["state"]), len(host_state)))
+    if not np.array_equal(seen["T"], host_T):
+        raise AssertionError("frontier case %s: the text differs from the "
+                             "host engine's" % label)
+    if not st.get("levels") or not st.get("applies"):
+        raise AssertionError("frontier case %s: the frontier did not run: "
+                             "%r" % (label, st))
+    if declines and (declines not in str(multi.get("fallback"))
+                     or st["fallback"] != multi["fallback"]):
+        raise AssertionError("frontier case %s: the multi loop should have "
+                             "declined with %s: %r / %r"
+                             % (label, declines, multi, st["fallback"]))
+    _check_paths(out, want)
+    print("frontier case %s (%d fastas, %d bp%s): node state (%d interval "
+          "nodes of %d graph nodes) and text equal to the host engine's, "
+          "every path spells "
+          "its input, host engine not run; levels %d, apply calls %d, "
+          "anchor steps %d, candidates %d, repair jobs %d, host syncs %d; "
+          "enumerate %.6f s, pick + surgery %.6f s, apply %.6f s, repair "
+          "%.6f s, frontier %.6f s, end to end (fastas -> GFA, CLI "
+          "in-process) %.6f s (%.6f Mbp/s), host engine %.6f s; peak device "
+          "memory %.6f GB"
+          % (label, len(fastas), total_bp,
+             ("; the multi loop declined (%s)" % multi["fallback"])
+             if declines else "", st["nodes"], st["all_nodes"],
+             st["levels"], st["applies"], st["steps"], st["candidates"], st["repair_jobs"], st["host_syncs"],
+             st["enumerate_seconds"], st["pick_seconds"],
+             st["apply_seconds"], st["repair_seconds"], st["seconds"],
+             t_e2e, total_bp / 1e6 / t_e2e, t_host, st["peak"] / 1e9))
+    return st
+
+
+def profile_frontier(label, fastas, workdir):
+    """A frontier case again with ``_align_loop_frontier`` traced
+    (``profile_loop``): kernel launches, host syncs, device time and the
+    card's busy share."""
+    from reveal_tpu_torch.align import rem
+    from reveal_tpu_torch.index import devfrontier
+
+    out = os.path.join(workdir, "frontier_profile_%s.gfa" % label)
+    prof = profile_loop(rem, "_align_loop_frontier",
+                        lambda: _frontier_cli(fastas, out))
+    print_profile("frontier case %s" % label, prof,
+                  ", the frontier's own counted syncs %d"
+                  % devfrontier.LAST_STATS["host_syncs"])
+    return prof
+
+
+def frontier_gfa(fastas, device, out, **cfg):
+    """``fastas`` forced onto the frontier (``_align_loop_frontier``) on
+    ``device``, written as the CLI writes it; returns the GFA's bytes."""
+    import torch
+
+    from reveal_tpu_torch.align import rem
+    from reveal_tpu_torch.align.graphops import prune_nodes
+    from reveal_tpu_torch.core.io_gfa import seq2node, write_gfa
+
+    ts, t, G, root_nodes = rem._read_inputs(fastas)
+    idx = rem.ESAIndex.construct(ts, backend="native")
+    idx.nodes = root_nodes
+    rem._align_loop_frontier(G, t, idx, rem.PickerConfig(**cfg),
+                             torch.device(device))
+    if len(G.graph["paths"]) > 2:
+        prune_nodes(G, T=idx.main.T)
+    seq2node(G, idx.main.T)
+    write_gfa(G, idx.main.T, outputfile=out)
+    with open(out, "rb") as fh:
+        return fh.read()
+
+
+def run_frontier(seed, workdir):
+    """Phase 5d: cases (a)-(c) through ``cli rem --device cuda``, (a)
+    once more traced, and (d) the card against the CPU."""
+    for label, n, length, cuts in FRONTIER_CASES:
+        fastas, total_bp, want = write_population(n, length, seed, workdir,
+                                                  cuts=cuts)
+        run_frontier_case(label, fastas, total_bp, want, workdir,
+                          "ABORT_MAXMUMS" if label == "a" else
+                          "not eligible" if n > 8 else None)
+        if label == "a":
+            profile_frontier(label, fastas, workdir)
+    n, length = FRONTIER_CARD_CPU
+    fastas, _bp, _want = write_population(n, length, seed, workdir)
+    for cfg in ({}, {"trim": False}):
+        got = {dev: frontier_gfa(fastas, dev, os.path.join(
+            workdir, "frontier_d_%s.gfa" % dev), **cfg)
+            for dev in ("cuda", "cpu")}
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError("frontier case d%s: GFA on the card (%d "
+                                 "bytes) differs from the CPU's (%d bytes)"
+                                 % (" --notrim" if cfg else "",
+                                    len(got["cuda"]), len(got["cpu"])))
+        print("frontier case d (%d x %d bp%s): GFA on the card equal to the "
+              "CPU's (%d bytes)" % (n, length, ", --notrim" if cfg else "",
+                                    len(got["cuda"])))
 
 
 def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
@@ -2103,13 +2269,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
-    ap.add_argument("--only", choices=["kernels", "profile", "multi"],
+    ap.add_argument("--only", choices=["kernels", "profile", "multi",
+                                       "frontier"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
                          "'profile': phases 1-2 and 5b only; 'multi': "
-                         "phases 1-2, window-resolve and 5c; each prints "
-                         "no result lines")
+                         "phases 1-2, window-resolve and 5c; 'frontier': "
+                         "phases 1-2 and 5d; each prints no result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
                          "parent's, to time it beside this one)")
@@ -2170,6 +2337,10 @@ def main(argv=None):
             print("chip_smoke --only multi: phases 1-2, window-resolve and "
                   "5c passed")
             return
+        if args.only == "frontier":
+            run_frontier(args.seed, wd)
+            print("chip_smoke --only frontier: phases 1-2 and 5d passed")
+            return
         rows = [check_window_resolve(dev)] + check_pairhmm(dev)
         rows.append(check_repair(fastas, wd))
         rows.append(check_mea_score(dev))
@@ -2180,6 +2351,7 @@ def main(argv=None):
         rem_launches, rem_gfa, t_rem = run_rem(fastas, total_bp, wd)
         profile_forest(fastas, total_bp, wd, "this checkout:")
         multi = run_multi(args.seed, wd)
+        run_frontier(args.seed, wd)
         launches, two_phase_batches, scans = run_refine(args.seed, wd)
         main_scans = [dict(time_mea(p, nrows, 10), launches=n)
                       for p, nrows, n in scans.values()]

@@ -17,13 +17,21 @@ Covered so far:
   paths -> GFA), whose whole recursion runs on the device as the level
   loop of ``index/devloop_multi.py`` with the repair rounds' insertion
   points from the window-resolve CUDA kernel (``csrc/window_resolve.cu``);
+* every other ``rem --frontier`` input -- bacterial-scale multi-genome
+  inputs past ``--maxmums`` (every input the multi loop declines), more
+  than 8 contig paths, multi-contig pairs (genomes with plasmids),
+  ``.gfa`` inputs, ``--notrim``, ``--seedsize``, ``--gcmodel``,
+  ``--maxsize`` -- whose recursion state stays on the device across the
+  levels of the per-level frontier (``index/devfrontier.py``: torch
+  stages, the host picking anchors and doing the graph surgery between
+  them);
 * ``refine`` (GFA -> GFA with realigned bubbles), whose pair posteriors
   (stage 1 of the consistency MSA) run on the device with the pair-HMM
   forward and backward DP as CUDA kernels (``csrc/pairhmm_dp.cu``).
 
 Entry points:
 
-* ``reveal_tpu_torch.align.rem.align_genomes([a.fa, b.fa, ...], device="cuda")``
+* ``reveal_tpu_torch.align.rem.align_genomes([a.fa, b.gfa, ...], device="cuda")``
 * ``reveal_tpu_torch.hmm.refine.refine_all(G, device="cuda", ...)``
 * ``python -m reveal_tpu_torch.cli rem a.fa b.fa --frontier -o out.gfa``
 * ``python -m reveal_tpu_torch.cli refine g.gfa --all -o out.gfa``

@@ -8,27 +8,32 @@ package's own copy of the reference's host code: fasta reading
 eligibility (``_multi_fast_eligible``) and the serial host engine
 (``_align_loop`` with ``graphalign`` and ``_enum_pick``).
 ``align_genomes`` and ``align_seqs`` route ``rem --frontier``
-(``_align_frontier``, the device routes of the reference's
-``_align_loop_frontier``): three or more samples (up to 8 contig paths)
-take the multi-genome loop on the device given
+(``_align_frontier``, the routes of the reference's
+``_align_loop_frontier`` on one device): three or more samples (up to 8
+contig paths) take the multi-genome loop on the device given
 (``index/devloop_multi.rem_device_multi`` through
-``_rem_device_multi_loop``); a pairwise fasta input takes the native
-host prefix ``rem2_defer_native`` for the big segments and the deferred
-forest on the device (``index/devloop.rem_device_forest``).
+``_rem_device_multi_loop``); a pairwise fasta input of one sequence a
+sample, trimmed, at an integral ``--wpen`` and ``minlength >= 1`` takes
+the native host prefix ``rem2_defer_native`` for the big segments and the
+deferred forest on the device (``index/devloop.rem_device_forest``).
+Every other input (graph inputs, multi-contig pairs, ``--notrim``,
+seeding, size gates, non-default picking) and every input the multi loop
+declines (a kernel abort code such as ``ABORT_MAXMUMS``, a segment with
+more than ``maxmums`` candidates; more than 8 paths; capacity retries
+that run out) runs the per-level frontier on the same device
+(``_align_loop_frontier`` over ``index/devfrontier.DeviceFrontier``), as
+the reference routes it; a decline is logged and recorded in
+``LAST_STATS["fallback"]`` of ``devloop_multi`` and ``devfrontier``.
 ``align_genomes_host`` runs the serial host engine alone; it is the
 reference the device paths are held to.
 
-Inputs the port does not cover raise ``NotImplementedError``; they are
-never routed to another engine.  When the forest or the multi loop
-declines an input (a kernel abort code such as ``ABORT_DUP_REF``, which
-needs the host's dict-aliasing, or ``ABORT_MAXMUMS``, a segment with
-more than ``maxmums`` candidates; capacity retries that run out; the
-level cap; a text of 2^30 bytes or more; a host prefix that cannot
-defer; more than 8 paths), a run on a CUDA device raises, so that no run
-on the card finishes on the host engine unseen.  On the CPU device it
-falls back to the serial host engine; the fallback is logged and
-recorded in ``LAST_STATS["fallback"]`` of ``devloop`` (pairwise) or
-``devloop_multi``.
+When the pairwise forest declines an input (a kernel abort code such as
+``ABORT_DUP_REF``, which needs the host's dict-aliasing; the level cap; a
+text of 2^30 bytes or more; a host prefix that cannot defer), a run on a
+CUDA device raises, naming ROADMAP item 7, which decides where such inputs
+go; on the CPU device it falls back to the serial host engine, logged and
+recorded in ``devloop.LAST_STATS["fallback"]``.  Inputs the port does not
+cover raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,10 +48,11 @@ import numpy as np
 
 from .. import _not_covered
 from ..core.io_fasta import fasta_reader
+from ..core.io_gfa import read_gfa_into
 from ..core.textstore import TextStore
 from ..core.torchconfig import resolve_device
-from ..graph.pangraph import PanGraph
-from ..index import devloop, devloop_multi
+from ..graph.pangraph import MultiPanGraph, PanGraph
+from ..index import devfrontier, devloop, devloop_multi
 from ..index.esa_index import ESAIndex
 from .graphops import (
     IntervalIndex,
@@ -659,7 +665,7 @@ def _declined(G, t, root, cfg, T, SAi, t_snap, sai_snap, device, why):
         raise RuntimeError(
             "the device forest declined this input (%s) on %s; such "
             "inputs are not covered by reveal_tpu_torch yet (ROADMAP "
-            "queue 1 item 2); run reveal_tpu for it" % (why, device)
+            "queue 1 item 7); run reveal_tpu for it" % (why, device)
         )
     log.warning("device forest declined (%s): host engine fallback", why)
     return _align_loop(G, t, root, cfg)
@@ -754,8 +760,8 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
                cfg: PickerConfig, device):
     """Three or more samples: the whole recursion on ``device`` through
     ``_rem_device_multi_loop``.  A decline (the loop leaves the text as
-    it was) raises on a CUDA device and finishes on the host engine on
-    the CPU.  Returns the anchor count."""
+    it was) runs the per-level frontier on the same device, the
+    reference's route for it.  Returns the anchor count."""
     st = devloop_multi.LAST_STATS
     st.clear()
     steps = _rem_device_multi_loop(G, t, root, cfg, device)
@@ -764,7 +770,8 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
         return steps
     if not st:
         why = ("not eligible for the multi loop (more than 8 contig paths, "
-               "non-default picking, seeding, size or depth gates)")
+               "graph input, non-default picking, seeding, size or depth "
+               "gates)")
     elif st.get("abort"):
         why = "kernel abort code %d (%s)" % (st["abort"],
                                              _abort_name(st["abort"]))
@@ -773,67 +780,293 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
     else:
         why = "text of %d bytes, at or above 2^30" % len(root.main.T)
     st["fallback"] = why
-    if device.type != "cpu":
-        raise RuntimeError(
-            "the multi-genome device loop declined this input (%s) on %s; "
-            "such inputs go to the per-level device frontier, which is not "
-            "covered by reveal_tpu_torch yet (ROADMAP queue 1 item 8); run "
-            "reveal_tpu for it" % (why, device)
-        )
-    log.warning("multi loop declined (%s): host engine fallback", why)
-    return _align_loop(G, t, root, cfg)
+    log.info("multi loop declined (%s): per-level frontier on %s", why,
+             device)
+    return _align_loop_frontier(G, t, root, cfg, device, declined=why)
 
 
 def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
                     cfg: PickerConfig, device):
-    """The device routes of ``_align_loop_frontier`` (reference rem.py:870;
-    no mesh): three or more samples take the multi-genome loop, a
-    pairwise fasta input the host prefix and device forest.  Inputs
-    neither takes go to the per-level frontier there, which the port
-    does not cover (item 8)."""
-    if not cfg.trim:
-        raise _not_covered("--notrim", "8")
+    """The routes of ``_align_loop_frontier`` (reference rem.py:870; no
+    mesh): three or more samples take the multi-genome loop, a pairwise
+    fasta input that the forest takes (trimmed, an integral ``--wpen``,
+    ``minlength >= 1``) the host prefix and device forest, every other
+    input the per-level frontier."""
     if root.main.nsamples > 2:
         return _rem_multi(G, t, root, cfg, device)
-    if not _pairwise_fast_eligible(G, root, cfg):
-        raise _not_covered(
-            "this input or configuration (multi-contig, seeding, size or "
-            "depth gates, non-default picking)", "8",
+    if (cfg.trim and _pairwise_fast_eligible(G, root, cfg)
+            and float(cfg.wpen).is_integer() and cfg.minlength >= 1):
+        return _rem_device_hybrid(G, t, root, cfg, device)
+    return _align_loop_frontier(G, t, root, cfg, device)
+
+
+def _align_loop_frontier(
+    G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: PickerConfig,
+    device, declined=None,
+):
+    """Device-resident level-synchronous recursion: T/SA/LCP/segment-ids
+    live on ``device`` across levels (index/devfrontier.py).  Each level =
+    one batched enumerate (pairwise conditions, or the PSV/NSV multiMUM
+    formulation when >2 samples) + host picking / graph surgery + one
+    batched apply (classification, segmented running-min LCP split,
+    stable partition, text lowercase).  Boundary repairs (bubble_sort,
+    reveal.c:666-727) are detected on device and fixed by fetching only
+    the affected leading children.
+
+    Per-segment decisions are independent (each segment owns disjoint
+    text and graph regions), so the result is semantically identical to
+    the LIFO loop; only GFA node numbering may differ.  ``declined``: why
+    the multi loop did not take this input, recorded as
+    ``devfrontier.LAST_STATS["fallback"]``."""
+    import numpy as _np
+
+    from ..index.devfrontier import DeviceFrontier, SegDesc
+
+    stats = devfrontier.LAST_STATS
+    stats.clear()
+    stats.update(fallback=declined, levels=0, steps=0, applies=0,
+                 enumerate_seconds=0.0, pick_seconds=0.0,
+                 apply_seconds=0.0, repair_seconds=0.0)
+    t_start = time.perf_counter()
+    main = root.main
+    picker = MumPicker(G, t, cfg)
+    dev = DeviceFrontier(
+        main.T,
+        root.SA,
+        root.LCP,
+        main.SO if main.SO is not None and len(main.SO) else
+        _np.zeros(len(main.T), _np.uint16),
+        int(main.nsep[0]),
+        main.nsamples,
+        device,
+        stats,
+    )
+    multi_mode = main.nsamples > 2
+
+    segs = {
+        0: SegDesc(
+            sid=0,
+            start=0,
+            n=dev.n,
+            depth=0,
+            nsamples=main.nsamples,
+            nodes=root.nodes,
+            left_node=root.left_node,
+            right_node=root.right_node,
+            skipmums=list(root.skipmums),
         )
-    if not float(cfg.wpen).is_integer() or cfg.minlength < 1:
-        raise _not_covered("a fractional --wpen or minlength < 1", "8")
-    return _rem_device_hybrid(G, t, root, cfg, device)
+    }
+    steps = 0
+    levels = 0
+    while segs:
+        levels += 1
+        sids = sorted(segs)
+        starts = _np.array([segs[s].start for s in sids])
+
+        # ---- enumerate all segments in one dispatch -------------------
+        t0 = time.perf_counter()
+        mums_for = {}
+        need = any(not segs[s].skipmums for s in sids)
+        if need and multi_mode:
+            ls, lbs, ubs, sa_rows, so_rows = dev.enumerate_multi(
+                cfg.minlength, cfg.minn
+            )
+            if len(ls):
+                trip = _np.stack([ls, lbs, ubs], axis=1)
+                _, uniq = _np.unique(trip, axis=0, return_index=True)
+                uniq = _np.sort(uniq)
+                order = uniq[
+                    _np.lexsort(
+                        (ubs[uniq], lbs[uniq], ls[uniq])
+                    )
+                ]
+                owner = _np.searchsorted(
+                    starts, lbs[order], side="right"
+                ) - 1
+                for k, oi in zip(order.tolist(), owner.tolist()):
+                    w = int(ubs[k] - lbs[k] + 1)
+                    coords = tuple(
+                        (int(so_rows[k, c]), int(sa_rows[k, c]))
+                        for c in range(w)
+                    )
+                    mums_for.setdefault(sids[oi], []).append(
+                        (int(ls[k]), w, coords)
+                    )
+        elif need:
+            slots, l, a, b = dev.enumerate_pairwise(cfg.minlength)
+            owner = _np.searchsorted(starts, slots, side="right") - 1
+            for k in range(len(slots)):
+                mums_for.setdefault(sids[int(owner[k])], []).append(
+                    (int(l[k]), 2, ((0, int(a[k])), (1, int(b[k]))))
+                )
+        t0 = devfrontier.clock(stats, "enumerate_seconds", t0)
+
+        # ---- pick + graph surgery per segment in level order ----------
+        S = len(sids)
+        seg_map = _np.full((S, 5), -1, dtype=_np.int32)
+        sid_index = {s: i for i, s in enumerate(sids)}
+        intervals = []
+        matches_all = []
+        repair_jobs = []  # (lead_sid, sorted own match begins)
+        child_descs = {}
+        next_sid = 0
+
+        for s in sids:
+            seg = segs[s]
+            if seg.skipmums:
+                precomputed = True
+                mums = seg.skipmums
+            else:
+                precomputed = False
+                mums = mums_for.get(s, [])
+
+            pick = picker(
+                mums, seg, precomputed=precomputed, minlength=cfg.minlength
+            )
+            if not pick:
+                continue
+            splitmum, skipleft, skipright = pick
+            ml, mn, spd = splitmum
+            (
+                leading,
+                trailing,
+                matching,
+                rest,
+                merged,
+                newleft,
+                newright,
+            ) = graphalign(G, t, seg, splitmum)
+            steps += 1
+            sp_positions = [p for gid, p in spd]
+            own_matches = sorted(matching)
+            matches_all.extend(own_matches)
+            for bgn, end in matching:
+                intervals.append((bgn, end, 3))
+
+            def _mk(desc_nodes, cls, left, right, skip):
+                nonlocal next_sid
+                for bgn, end in desc_nodes:
+                    intervals.append((bgn, end, cls))
+                if not desc_nodes:
+                    return None
+                sid = next_sid
+                next_sid += 1
+                seg_map[sid_index[s], cls] = sid
+                seen = {int(main.SO[bgn]) for bgn, _e in desc_nodes}
+                child_descs[sid] = SegDesc(
+                    sid=sid,
+                    start=0,
+                    n=0,
+                    depth=seg.depth + 1,
+                    nsamples=len(seen),
+                    nodes=set(desc_nodes),
+                    left_node=left,
+                    right_node=right,
+                    skipmums=list(skip or []),
+                )
+                return sid
+
+            # child creation order mirrors the push order parallel,
+            # leading, trailing (reveal.c:1295-1324)
+            _mk(rest, 4, seg.left_node, seg.right_node, [])
+            lead_sid = _mk(leading, 1, seg.left_node, newright, skipleft)
+            _mk(trailing, 2, newleft, seg.right_node, skipright)
+            if lead_sid is not None:
+                repair_jobs.append(
+                    (lead_sid, [bgn for bgn, _e in own_matches])
+                )
+
+        # host text mirror follows the device lowercase (prune_nodes and
+        # later library use read main.T); matched regions lowercase even
+        # when no child segments remain (reveal.c:1230-1234 runs
+        # unconditionally)
+        for bgn, end in matches_all:
+            tt = main.T[bgn:end]
+            low = (tt >= ord("A")) & (tt <= ord("Z"))
+            tt[low] += 32
+        t0 = devfrontier.clock(stats, "pick_seconds", t0)
+
+        if next_sid == 0:
+            break
+
+        # ---- apply split + lowercase on device ------------------------
+        counts, rcount = dev.apply_level(
+            intervals, seg_map, matches_all, repair_jobs
+        )
+        stats["applies"] += 1
+        t0 = devfrontier.clock(stats, "apply_seconds", t0)
+
+        offsets = _np.zeros(len(counts) + 1, dtype=_np.int64)
+        offsets[1:] = _np.cumsum(counts)
+        nxt = {}
+        for sid, desc in child_descs.items():
+            cnt = int(counts[sid])
+            if cnt == 0:
+                continue
+            desc.start = int(offsets[sid])
+            desc.n = cnt
+            nxt[sid] = desc
+
+        # ---- boundary repair on affected leading children (batched:
+        # one gather + scatter per level) --------------------------------
+        dev.repair_children(
+            [
+                (nxt[lead_sid].start, nxt[lead_sid].n, begins)
+                for lead_sid, begins in repair_jobs
+                if lead_sid in nxt and begins and int(rcount[lead_sid]) > 0
+            ]
+        )
+        devfrontier.clock(stats, "repair_seconds", t0)
+
+        segs = nxt
+
+    stats.update(levels=levels, steps=steps,
+                 seconds=time.perf_counter() - t_start)
+    log.debug(
+        "device frontier: %d anchor steps in %d levels", steps, levels
+    )
+    return steps
+
+
+def _read_inputs(inputfiles: List[str], multi: bool = False):
+    """Fasta and ``.gfa``/``.gfa.gz`` inputs -> (text store, interval
+    index, graph, root nodes), as ``reveal_tpu.align.rem.align_genomes``
+    reads them (rem.py:1197-1217): a ``MultiPanGraph`` with ``multi``."""
+    ts = TextStore()
+    t = IntervalIndex()
+    G = MultiPanGraph() if multi else PanGraph()
+    root_nodes = set()
+    for sample in inputfiles:
+        if sample.endswith(".gfa") or sample.endswith(".gfa.gz"):
+            ts.add_sample(os.path.basename(sample))
+            read_gfa_into(sample, ts, t, G, root_nodes)
+        else:
+            read_fasta_into(sample, ts, t, G, root_nodes)
+    if ts.nsamples <= 1:
+        raise ValueError(
+            "Specify at least 2 targets to construct an alignment."
+        )
+    return ts, t, G, root_nodes
 
 
 def align_genomes(
     inputfiles: List[str],
     device="cuda",
     frontier: bool = True,
+    multi: bool = False,
     **cfgkw,
 ):
-    """Alignment of two or more fasta files -> (G, idx), the recursion
-    on ``device``.  Mirrors ``reveal_tpu.align.rem.align_genomes(
-    inputfiles, frontier=True)`` for fasta inputs: three or more samples
-    take the multi-genome device loop, two the host prefix and device
-    forest; ``cfgkw`` are ``PickerConfig`` fields."""
+    """Alignment of two or more fasta or ``.gfa`` files -> (G, idx), the
+    recursion on ``device``.  Mirrors ``reveal_tpu.align.rem.align_genomes(
+    inputfiles, multi=multi, frontier=True)``: three or more samples take
+    the multi-genome device loop, a plain pair the host prefix and device
+    forest, every other input (and every decline of the multi loop) the
+    per-level device frontier; ``multi`` builds the parallel-edge graph
+    (``MultiPanGraph``); ``cfgkw`` are ``PickerConfig`` fields."""
     dev = resolve_device(device)
     if not frontier:
         raise _not_covered("the serial LIFO engine (no --frontier)", "10")
-    for f in inputfiles:
-        if f.endswith(".gfa") or f.endswith(".gfa.gz"):
-            raise _not_covered("graph (.gfa) input", "8")
-
-    ts = TextStore()
-    t = IntervalIndex()
-    G = PanGraph()
-    root_nodes = set()
-    for sample in inputfiles:
-        read_fasta_into(sample, ts, t, G, root_nodes)
-    if ts.nsamples <= 1:
-        raise ValueError(
-            "Specify at least 2 targets to construct an alignment."
-        )
-
+    ts, t, G, root_nodes = _read_inputs(inputfiles, multi)
     # "native", not "auto": a failed native build raises instead of
     # quietly switching to the numpy suffix sort
     idx = ESAIndex.construct(ts, backend="native")
@@ -842,21 +1075,13 @@ def align_genomes(
     return G, idx
 
 
-def align_genomes_host(inputfiles: List[str], **cfgkw):
-    """Alignment of fasta files by the serial host engine
+def align_genomes_host(inputfiles: List[str], multi: bool = False,
+                       **cfgkw):
+    """Alignment of fasta or ``.gfa`` files by the serial host engine
     alone (``_align_loop``: the native whole-recursion loop where
     eligible, else the per-step LIFO loop) -> (G, idx).  The reference
     the device path is held to; not an entry point of the CLI."""
-    ts = TextStore()
-    t = IntervalIndex()
-    G = PanGraph()
-    root_nodes = set()
-    for sample in inputfiles:
-        read_fasta_into(sample, ts, t, G, root_nodes)
-    if ts.nsamples <= 1:
-        raise ValueError(
-            "Specify at least 2 targets to construct an alignment."
-        )
+    ts, t, G, root_nodes = _read_inputs(inputfiles, multi)
     idx = ESAIndex.construct(ts, backend="native")
     idx.nodes = root_nodes
     _align_loop(G, t, idx, PickerConfig(**cfgkw))
@@ -1107,9 +1332,9 @@ def align_seqs(
 
     The recursion runs on ``device`` as ``align_seqs(..., frontier=True)``
     of the reference routes it (``_align_frontier``): the multi-genome
-    loop for three or more sequences, the host prefix and device forest
-    for two.  Only on the CPU does a declined input finish on the serial
-    host engine; on a CUDA device it raises.
+    loop for three or more sequences (its declines on the per-level
+    frontier), the host prefix and device forest for a plain pair, the
+    per-level frontier for the rest.
     """
     ts = TextStore()
     t = IntervalIndex()

@@ -1,21 +1,25 @@
 """Command line of the torch port.
 
-    python -m reveal_tpu_torch.cli rem A.fa B.fa [C.fa ...] [--frontier] \\
-        [--device cuda|cpu] [-m MINLENGTH] [-n MINN] [--maxmums N] \\
-        [--wpen W] [--wscore W] [--pcutoff P] [-o out.gfa]
+    python -m reveal_tpu_torch.cli rem A.fa|A.gfa B.fa|B.gfa [C ...] \\
+        [--frontier] [--device cuda|cpu] [-m MINLENGTH] [-n MINN] \\
+        [--maxmums N] [--wpen W] [--wscore W] [--seedsize S] \\
+        [--pcutoff P] [--gcmodel M] [--maxsize N] [--notrim] [--multi] \\
+        [-o out.gfa]
     python -m reveal_tpu_torch.cli refine G.gfa --all|--simple|--complex \\
         [--device cuda|cpu] [-o out.gfa] [refine options]
 
 ``rem --frontier`` (the flag is accepted and always on) runs the
 recursion on ``--device`` (default ``cuda``; without a card that is an
-error, never a quiet switch to the CPU): two fastas through the native
-host prefix and the device forest, three or more (up to 8 contig paths)
-through the multi-genome device loop.  An input the multi loop declines
-(a segment with more than ``--maxmums`` candidates, which bacterial-scale
-inputs have at the default of 10,000, or a capacity it cannot meet)
-raises on the card; only ``--device cpu`` finishes such an input on the
-host engine.  The GFA and the identity log line are those of ``python -m
-reveal_tpu.cli rem``.
+error, never a quiet switch to the CPU): two single-sequence fastas
+through the native host prefix and the device forest, three or more (up
+to 8 contig paths) through the multi-genome device loop, and every other
+input (``.gfa`` inputs, multi-contig pairs, ``--notrim``, ``--seedsize``,
+``--gcmodel``, ``--maxsize``) through the per-level device frontier.  An
+input the multi loop declines (a segment with more than ``--maxmums``
+candidates, which bacterial-scale inputs have at the default of 10,000,
+more than 8 paths, or a capacity it cannot meet) goes to the per-level
+frontier on the same device, as in ``reveal_tpu``.  The GFA and the
+identity log line are those of ``python -m reveal_tpu.cli rem``.
 
 ``refine`` (alias ``realign``) realigns bubbles with the pair-HMM
 consistency MSA.  On a card (``--device cuda``) the posteriors, MEA
@@ -50,7 +54,12 @@ def rem_cmd(args):
         maxmums=args.maxmums,
         wpen=args.wpen,
         wscore=args.wscore,
+        seedsize=args.seedsize,
         pcutoff=args.pcutoff,
+        gcmodel=args.gcmodel,
+        maxsize=args.maxsize,
+        trim=not args.notrim,
+        multi=args.multi,
     )
     if args.output is None:
         pref = []
@@ -173,15 +182,16 @@ def build_parser():
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser(
-        "rem", help="Align two or more fasta files into a GFA.",
-        description="Two fastas: native host prefix, then the device "
-        "forest.  Three or more (up to 8 contig paths): the multi-genome "
-        "device loop, which declines (and on a card raises) inputs with "
-        "a segment of more than --maxmums candidates: at the default "
-        "10,000, about 100 kbp a genome at six genomes (bacterial-scale "
-        "multi inputs are not covered yet).",
+        "rem", help="Align two or more fasta or gfa files into a GFA.",
+        description="Two single-sequence fastas: native host prefix, then "
+        "the device forest.  Three or more (up to 8 contig paths): the "
+        "multi-genome device loop.  Every other input, and every input the "
+        "multi loop declines (a segment of more than --maxmums "
+        "candidates: at the default 10,000, past about 100 kbp a genome "
+        "at six genomes), runs the per-level device frontier.",
     )
-    r.add_argument("inputfiles", nargs="+", help="Two or more fasta files.")
+    r.add_argument("inputfiles", nargs="+",
+                   help="Two or more fasta or gfa inputs.")
     r.add_argument(
         "--frontier", action="store_true",
         help="Accepted for compatibility with reveal_tpu's CLI; the "
@@ -200,13 +210,28 @@ def build_parser():
                    help="Min number of samples a multiMUM spans (default 2).")
     r.add_argument("--maxmums", type=int, default=10000,
                    help="Max candidates of one segment (default 10000); "
-                        "the multi loop declines a segment with more.")
+                        "the multi loop declines a segment with more, and "
+                        "the frontier takes it.")
     r.add_argument("--wpen", "--wp", type=int, default=1,
                    help="Chaining gap-penalty weight (default 1).")
     r.add_argument("--wscore", "--ws", type=int, default=1,
                    help="Chaining match-score weight (default 1).")
+    r.add_argument("--seedsize", type=int, default=0,
+                   help="Seed anchors of at least this length first "
+                        "(default 0: off).")
     r.add_argument("--pcutoff", type=float, default=1e-8,
                    help="P-value cutoff of an anchor (default 1e-8).")
+    r.add_argument("--gcmodel", default="sumofpairs",
+                   help="Gap-cost model of the chain (default "
+                        "sumofpairs).")
+    r.add_argument("--maxsize", "--maxbubblesize", type=int, default=None,
+                   help="Do not align segments larger than this.")
+    r.add_argument("--notrim", action="store_true",
+                   help="Do not trim overlapping anchors of a chain.")
+    r.add_argument("--multi", action="store_true",
+                   help="Parallel-edge graph mode: keep inversion edges "
+                        "and '*' original-layout paths of gfa inputs "
+                        "through the alignment.")
     r.add_argument("-o", "--output", dest="output", default=None,
                    help="Output GFA (default: <a>_<b>.gfa.gz).")
     r.set_defaults(func=rem_cmd)

@@ -1,0 +1,235 @@
+"""The inputs that take the torch port's per-level frontier, end to end.
+
+Each case runs four ways on the same numpy-seeded input: the JAX
+package's serial host engine, the JAX package's ``DeviceFrontier``
+(``align_genomes(..., frontier=True)`` with ``REVEAL_TPU_DISABLE_DEVLOOP``
+set, which skips its whole-recursion loops: without it a multi-genome
+input dies on the ``segstart`` NameError of ``_build_kernel_multi`` before
+it reaches the frontier), the port's ``align_genomes(device="cpu")`` by its
+own routing, and the port's frontier forced (``_align_loop_frontier``).
+The port's frontier writes the JAX frontier's GFA byte for byte and its
+text; the port's route builds the host engine's node state (intervals,
+offsets, aligned flags) and text, and where its route is the frontier,
+the JAX frontier's GFA.
+"""
+
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import reveal_tpu.align.rem as jax_rem
+from reveal_tpu.align.graphops import prune_nodes as jax_prune
+from reveal_tpu.core.io_fasta import fasta_writer
+from reveal_tpu.core.io_gfa import seq2node as jax_seq2node
+from reveal_tpu.core.io_gfa import write_gfa as jax_write_gfa
+from reveal_tpu.utils.simulate import simulate_population
+from reveal_tpu_torch.align import rem as port_rem
+from reveal_tpu_torch.align.graphops import prune_nodes as port_prune
+from reveal_tpu_torch.core.io_gfa import seq2node as port_seq2node
+from reveal_tpu_torch.core.io_gfa import write_gfa as port_write_gfa
+from reveal_tpu_torch.index import devfrontier, devloop, devloop_multi
+from test_torch_frontier import (four_genomes, multicontig_pair,
+                                 repetitive_pair)
+
+CPU = torch.device("cpu")
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads for this file's tests, restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture
+def jax_frontier(monkeypatch):
+    """The JAX package's ``frontier=True`` goes straight to its
+    ``DeviceFrontier``."""
+    monkeypatch.setenv("REVEAL_TPU_DISABLE_DEVLOOP", "1")
+
+
+def node_state(G):
+    """tests/test_frontier.py's ``_node_state``."""
+    return sorted(
+        (n, tuple(sorted(G.nodes[n]["offsets"].items())),
+         G.nodes[n].get("aligned", 0))
+        for n in G.nodes if isinstance(n, tuple))
+
+
+def _gfa(G, idx, fn, prune, s2n, wg):
+    """The GFA as the CLI writes it (pruned past two paths)."""
+    if len(G.graph["paths"]) > 2:
+        prune(G, T=idx.main.T)
+    s2n(G, idx.main.T)
+    wg(G, idx.main.T, outputfile=fn)
+    with open(fn, "rb") as fh:
+        return fh.read()
+
+
+def _jax_gfa(G, idx, fn):
+    return _gfa(G, idx, fn, jax_prune, jax_seq2node, jax_write_gfa)
+
+
+def _port_gfa(G, idx, fn):
+    return _gfa(G, idx, fn, port_prune, port_seq2node, port_write_gfa)
+
+
+def _forced(files, multi=False, **cfg):
+    ts, t, G, root_nodes = port_rem._read_inputs(files, multi)
+    idx = port_rem.ESAIndex.construct(ts, backend="native")
+    idx.nodes = root_nodes
+    port_rem._align_loop_frontier(G, t, idx, port_rem.PickerConfig(**cfg),
+                                  CPU)
+    return G, idx
+
+
+def hold(files, tmp_path, multi=False, **cfg):
+    """The four runs of the module docstring; returns the frontier's
+    ``LAST_STATS`` after the port's own route (empty when the route was
+    not the frontier)."""
+    G, idx = jax_rem.align_genomes(files, backend="auto", multi=multi,
+                                   **cfg)
+    host_state, host_T = node_state(G), idx.main.T.copy()
+    G, idx = jax_rem.align_genomes(files, backend="auto", multi=multi,
+                                   frontier=True, **cfg)
+    jax_T = idx.main.T.copy()
+    want = _jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
+
+    devfrontier.LAST_STATS.clear()
+    G, idx = port_rem.align_genomes(files, device="cpu", multi=multi, **cfg)
+    stats = dict(devfrontier.LAST_STATS)
+    assert node_state(G) == host_state
+    np.testing.assert_array_equal(idx.main.T, host_T)
+    port = _port_gfa(G, idx, str(tmp_path / "port.gfa"))
+    if stats:
+        assert stats["levels"] > 1
+        assert port == want
+
+    G, idx = _forced(files, multi, **cfg)
+    np.testing.assert_array_equal(idx.main.T, jax_T)
+    assert _port_gfa(G, idx, str(tmp_path / "forced.gfa")) == want
+    return stats
+
+
+def test_frontier_pair(tmp_path, jax_frontier):
+    """tests/test_frontier.py's pair: one sequence a sample, so the
+    port's route is the host prefix and forest; the forced frontier
+    still writes the JAX frontier's GFA."""
+    rng = np.random.default_rng(2)
+    base = "".join(rng.choice(list("ACGT"), size=4000))
+    mut = list(base)
+    for _ in range(40):
+        i = int(rng.integers(0, len(mut)))
+        if rng.random() < 0.5:
+            mut[i] = "ACGT"[int(rng.integers(0, 4))]
+        else:
+            del mut[i]
+    fa = [str(tmp_path / "a.fa"), str(tmp_path / "b.fa")]
+    fasta_writer(fa[0], [("a", base)])
+    fasta_writer(fa[1], [("b", "".join(mut))])
+    assert not hold(fa, tmp_path)
+
+
+@pytest.mark.parametrize("make,cfg,route", [
+    (multicontig_pair, {}, True),
+    (repetitive_pair, {"minlength": 15}, False),
+    (four_genomes, {}, False),
+    (four_genomes, {"maxmums": 30}, True),
+], ids=["multicontig-pair", "repetitive-pair-m15", "four-genomes",
+        "four-genomes-maxmums30"])
+def test_frontier_inputs(make, cfg, route, tmp_path, jax_frontier):
+    """tests/test_frontier.py's inputs; at ``maxmums=30`` the multi loop
+    declines (ABORT_MAXMUMS) and the frontier finishes the input."""
+    stats = hold(make(tmp_path), tmp_path, **cfg)
+    assert bool(stats) == route
+    if cfg.get("maxmums"):
+        assert "ABORT_MAXMUMS" in devloop_multi.LAST_STATS["fallback"]
+        assert stats["fallback"] == devloop_multi.LAST_STATS["fallback"]
+
+
+def _population(tmp_path, n, length, seed, split=None):
+    fastas = []
+    for i, (name, seq, _ids) in enumerate(
+            simulate_population(n, length, seed=seed)):
+        fn = str(tmp_path / (name + ".fa"))
+        half = len(seq) // 2
+        fasta_writer(fn, [(name, seq)] if i != split else
+                     [(name + "_1", seq[:half]), (name + "_2", seq[half:])])
+        fastas.append(fn)
+    return fastas
+
+
+def test_nine_paths(tmp_path, jax_frontier):
+    """Eight genomes, one of two contigs: nine paths, past the multi
+    loop's eight, take the frontier."""
+    fastas = _population(tmp_path, 8, 3000, 10, split=3)
+    assert "not eligible" in hold(fastas, tmp_path)["fallback"]
+
+
+@pytest.mark.parametrize("cfg", [
+    {"seedsize": 40}, {"gcmodel": "star-avg"}, {"maxsize": 200},
+], ids=["seedsize40", "gcmodel-star-avg", "maxsize200"])
+def test_picking_options_take_the_frontier(cfg, tmp_path, jax_frontier):
+    """Seeding, a gap-cost model and a size gate: not forest inputs."""
+    stats = hold(_population(tmp_path, 2, 20_000, 5), tmp_path, **cfg)
+    assert stats and stats["fallback"] is None
+
+
+def test_notrim_is_honoured(tmp_path, jax_frontier):
+    """``--notrim`` on a plain pair takes the frontier and keeps the
+    untrimmed result: the JAX host engine's node state with
+    ``trim=False`` and the JAX ``DeviceFrontier``'s GFA.  (The JAX
+    ``frontier=True`` route without the variable gives the trimmed result
+    there: its single-root loop always trims.)"""
+    fastas = _population(tmp_path, 2, 20_000, 5)
+    assert hold(fastas, tmp_path, trim=False)
+    G, _idx = jax_rem.align_genomes(fastas, backend="auto")
+    trimmed = node_state(G)
+    G, _idx = port_rem.align_genomes(fastas, device="cpu", trim=False)
+    assert node_state(G) != trimmed
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["digraph", "multi"])
+def test_gfa_and_fasta_inputs(tmp_path, jax_frontier, multi):
+    """A three-path bubble chain as ``.gfa`` beside a fasta of one of its
+    paths, mutated: graph inputs take the frontier, in either graph mode
+    (``--multi``: the parallel-edge graph)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gfa = str(tmp_path / "chain.gfa")
+    want = smoke.write_bubble_chain(gfa, seed=4, n_small=3, small=80,
+                                    n_big=1, big=150, npaths=3)
+    rng = np.random.default_rng(3)
+    seq = list(want[sorted(want)[0]])
+    for _ in range(5):
+        seq[int(rng.integers(0, len(seq)))] = "ACGT"[int(rng.integers(0, 4))]
+    fa = str(tmp_path / "x.fa")
+    fasta_writer(fa, [("x", "".join(seq))])
+    assert hold([gfa, fa], tmp_path, multi=multi)
+
+
+def test_forest_declines_keep_their_route(tmp_path, monkeypatch):
+    """A pairwise forest decline is not a frontier input (ROADMAP item 7
+    decides its route): on a stood-in card it raises naming item 7."""
+    fastas = _population(tmp_path, 2, 20_000, 5)
+    monkeypatch.setattr(port_rem, "resolve_device",
+                        lambda _d: torch.device("cuda"))
+
+    def aborts(*_a, **_k):
+        devloop.LAST_STATS.clear()
+        devloop.LAST_STATS["abort"] = devloop.ABORT_DUP_REF
+        return None
+
+    monkeypatch.setattr(devloop, "rem_device_forest", aborts)
+    devfrontier.LAST_STATS.clear()
+    with pytest.raises(RuntimeError, match="item 7"):
+        port_rem.align_genomes(fastas, device="cuda")
+    assert not devfrontier.LAST_STATS

@@ -321,73 +321,118 @@ def test_repair_rounds_equal_the_sequential_resolve(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# declines
+# declines: the per-level frontier takes them
 # ----------------------------------------------------------------------
-def test_decline_raises_on_cuda(tmp_path, monkeypatch):
-    """On a CUDA device an abort code (here ABORT_MAXMUMS: --maxmums 30)
-    raises naming the code and item 8, and the host engine does not run.
-    The card is stood in for: the loop runs on the CPU."""
-    fastas = _write_fastas(tmp_path, 4, 4000, 9, None)
+def _node_state(G):
+    """tests/test_frontier.py's ``_node_state``: the frontier builds the
+    host engine's nodes; only the GFA's node numbering may differ."""
+    return sorted(
+        (n, tuple(sorted(G.nodes[n]["offsets"].items())),
+         G.nodes[n].get("aligned", 0))
+        for n in G.nodes if isinstance(n, tuple))
+
+
+@pytest.fixture
+def stood_in_card(monkeypatch):
+    """``device="cuda"`` resolves to a CUDA device, while the multi loop
+    and the frontier run on the CPU."""
+    from reveal_tpu_torch.index import devfrontier
+
     monkeypatch.setattr(port_rem, "resolve_device",
                         lambda _d: torch.device("cuda"))
     loop = devloop_multi.rem_device_multi
     monkeypatch.setattr(devloop_multi, "rem_device_multi",
                         lambda *a, **k: loop(*a, **dict(k, device=CPU)))
-    host = []
-    monkeypatch.setattr(port_rem, "_align_loop", lambda *a: host.append(a))
-    with pytest.raises(RuntimeError, match="item 8") as err:
-        port_rem.align_genomes(fastas, device="cuda", maxmums=30)
-    assert "ABORT_MAXMUMS" in str(err.value)
+
+    class OnTheCPU(devfrontier.DeviceFrontier):
+        def __init__(self, T, SA, LCP, SO, nsep0, nsamples, device,
+                     stats=None):
+            assert torch.device(device).type == "cuda"
+            super().__init__(T, SA, LCP, SO, nsep0, nsamples, CPU, stats)
+
+    monkeypatch.setattr(devfrontier, "DeviceFrontier", OnTheCPU)
+    return devfrontier
+
+
+def test_decline_raises_on_cuda(tmp_path, stood_in_card, no_host_engine):
+    """On a CUDA device an abort code (here ABORT_MAXMUMS: --maxmums 30)
+    sends the input to the per-level frontier on the same device, the
+    reference's route: it finishes with the JAX package's host-engine
+    node state, the decline recorded in both LAST_STATS and the host
+    engine never called (the name is from when such inputs raised).  The
+    card is stood in for: the loop and the frontier run on the CPU."""
+    fastas = _write_fastas(tmp_path, 4, 4000, 9, None)
+    G, _idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30)
+    want = _node_state(G)
+    G, _idx = port_rem.align_genomes(fastas, device="cuda", maxmums=30)
     assert devloop_multi.LAST_STATS["abort"] == devloop.ABORT_MAXMUMS
-    assert not host
+    why = devloop_multi.LAST_STATS["fallback"]
+    assert why == "kernel abort code 7 (ABORT_MAXMUMS)"
+    assert stood_in_card.LAST_STATS["fallback"] == why
+    assert stood_in_card.LAST_STATS["levels"] > 1
+    assert _node_state(G) == want
 
 
 @pytest.mark.parametrize("maxmums", [10000, 30])
 def test_align_seqs_on_cuda_never_runs_the_host_engine(
-        tmp_path, monkeypatch, no_host_engine, maxmums):
+        tmp_path, stood_in_card, no_host_engine, maxmums):
     """``align_seqs(aobjs, device="cuda")`` runs the multi loop on the
     card and nothing else: the GFA of the JAX package's host engine with
-    the port's host engine never called, and a decline (``maxmums`` 30)
-    raises naming item 8.  The card is stood in for: the loop runs on
-    the CPU."""
+    the port's host engine never called; a decline (``maxmums`` 30) runs
+    the frontier on the card, with the host engine's node state.  The
+    card is stood in for: the loop and the frontier run on the CPU."""
     aobjs = _population(4, 3000, 11)
-    monkeypatch.setattr(port_rem, "resolve_device",
-                        lambda _d: torch.device("cuda"))
-    loop = devloop_multi.rem_device_multi
-    monkeypatch.setattr(devloop_multi, "rem_device_multi",
-                        lambda *a, **k: loop(*a, **dict(k, device=CPU)))
-    if maxmums < 10000:
-        with pytest.raises(RuntimeError, match="ABORT_MAXMUMS.*item 8"):
-            port_rem.align_seqs(aobjs, minlength=20, maxmums=maxmums,
-                                device="cuda")
-        return
-    G, idx = jax_rem.align_seqs(aobjs, minlength=20, frontier=False)
+    G, idx = jax_rem.align_seqs(aobjs, minlength=20, maxmums=maxmums,
+                                frontier=False)
+    want_state = _node_state(G)
     want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
-    G, idx = port_rem.align_seqs(aobjs, minlength=20, device="cuda")
+    stood_in_card.LAST_STATS.clear()
+    G, idx = port_rem.align_seqs(aobjs, minlength=20, maxmums=maxmums,
+                                 device="cuda")
+    if maxmums < 10000:
+        assert "ABORT_MAXMUMS" in stood_in_card.LAST_STATS["fallback"]
+        assert _node_state(G) == want_state
+        return
     _assert_engaged()
+    assert not stood_in_card.LAST_STATS
     assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
-def test_decline_finishes_on_the_host_engine_on_the_cpu(tmp_path):
-    """On the CPU the same decline keeps the host engine's output and
-    records the code."""
+def test_decline_finishes_on_the_host_engine_on_the_cpu(tmp_path,
+                                                        monkeypatch):
+    """On the CPU the same decline finishes on the frontier (the name is
+    from when it finished on the host engine): the JAX package's
+    ``DeviceFrontier`` GFA byte for byte, the host engine's node state,
+    the code recorded."""
+    from reveal_tpu_torch.index import devfrontier
+
     fastas = _write_fastas(tmp_path, 4, 4000, 9, None)
-    G, idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30)
-    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    G, _idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30)
+    want_state = _node_state(G)
+    monkeypatch.setenv("REVEAL_TPU_DISABLE_DEVLOOP", "1")
+    G, idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30,
+                                   frontier=True)
+    want = _jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
     G, idx = port_rem.align_genomes(fastas, device="cpu", maxmums=30)
     st = devloop_multi.LAST_STATS
     assert st["abort"] == devloop.ABORT_MAXMUMS
     assert st["fallback"] == "kernel abort code 7 (ABORT_MAXMUMS)"
+    assert devfrontier.LAST_STATS["fallback"] == st["fallback"]
+    assert _node_state(G) == want_state
     assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
-def test_more_than_eight_paths_is_declined(tmp_path, monkeypatch):
-    """Nine paths are past the loop's width: on a CUDA device the input
-    raises naming item 8 before any tensor moves."""
+def test_more_than_eight_paths_is_declined(tmp_path, stood_in_card,
+                                           no_host_engine):
+    """Nine paths are past the loop's width: on a CUDA device the loop
+    declines before any tensor moves and the input takes the frontier
+    on the card, with the JAX package's host-engine node state.  The
+    card is stood in for: the frontier runs on the CPU."""
     fastas = _write_fastas(tmp_path, 8, 1500, 10, 3)
-    monkeypatch.setattr(port_rem, "resolve_device",
-                        lambda _d: torch.device("cuda"))
-    with pytest.raises(RuntimeError, match="not eligible.*item 8"):
-        port_rem.align_genomes(fastas, device="cuda")
+    G, _idx = jax_rem.align_genomes(fastas, backend="auto")
+    want = _node_state(G)
+    G, _idx = port_rem.align_genomes(fastas, device="cuda")
     assert devloop_multi.LAST_STATS == {"fallback": devloop_multi.LAST_STATS[
         "fallback"]}
+    assert "not eligible" in stood_in_card.LAST_STATS["fallback"]
+    assert _node_state(G) == want

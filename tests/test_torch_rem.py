@@ -157,15 +157,11 @@ def _three_fastas(tmp_path):
 
 
 def test_uncovered_inputs_raise(tmp_path):
+    """Only the serial host engine as a route (no ``--frontier``, item 10)
+    is left uncovered; graph inputs, multi-contig pairs and ``--notrim``
+    take the per-level frontier (tests/test_torch_frontier_routes.py)."""
     fa = _three_fastas(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_rem.align_genomes([fa[0], str(tmp_path / "g.gfa")],
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port_rem.align_genomes([fa[0], fa[2]], device="cpu")
-    with pytest.raises(NotImplementedError, match="--notrim"):
-        port_rem.align_genomes(fa[:2], device="cpu", trim=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10"):
         port_rem.align_genomes(fa[:2], device="cpu", frontier=False)
     with pytest.raises(ValueError):
         port_rem.align_genomes(fa[:1], device="cpu")
@@ -194,30 +190,48 @@ def test_three_fastas_match_the_host_engine(tmp_path):
         assert fh.read() == host
 
 
-def test_cli_flags_match_the_reveal_tpu_cli(tmp_path):
+def test_cli_flags_match_the_reveal_tpu_cli(tmp_path, monkeypatch):
     """Non-default -m, -n, --maxmums, --wscore, --wpen and --pcutoff
     reach the pairwise route: the port's GFA equals ``python -m
     reveal_tpu.cli rem --frontier``'s with the same flags, and differs
-    from the default one."""
+    from the default one.  --seedsize, --gcmodel, --maxsize, --notrim and
+    --multi reach the per-level frontier: the port's GFA equals the
+    reference CLI's on its ``DeviceFrontier`` (``REVEAL_TPU_DISABLE_DEVLOOP``
+    skips its single-root loop, which always trims)."""
     import reveal_tpu.cli as jax_cli
     from reveal_tpu_torch import cli as port_cli
+    from reveal_tpu_torch.index import devfrontier
 
     fastas = _write_pair(tmp_path, 30_000, seed=11)
     flags = ["-m", "16", "-n", "2", "--maxmums", "10", "--wscore", "2",
              "--wpen", "3", "--pcutoff", "1e-6"]
+    frontier_flags = ["--seedsize", "30", "--gcmodel", "star-avg",
+                      "--maxsize", "5000", "--maxbubblesize", "4000",
+                      "--notrim", "--multi"]
     out = {}
     for name, argv, main in (
             ("ref", ["--frontier", *flags], jax_cli.main),
             ("port", ["--frontier", "--device", "cpu", *flags],
              port_cli.main),
-            ("default", ["--device", "cpu"], port_cli.main)):
+            ("default", ["--device", "cpu"], port_cli.main),
+            ("port_frontier", ["--device", "cpu", *frontier_flags],
+             port_cli.main),
+            ("ref_frontier", ["--frontier", *frontier_flags],
+             jax_cli.main)):
+        if name == "port_frontier":
+            assert devloop.LAST_STATS["abort"] == 0
+            devfrontier.LAST_STATS.clear()
+        if name == "ref_frontier":
+            assert devfrontier.LAST_STATS["levels"] > 1
+            monkeypatch.setenv("REVEAL_TPU_DISABLE_DEVLOOP", "1")
         fn = str(tmp_path / (name + ".gfa"))
         main(["rem", *fastas, *argv, "-o", fn])
         with open(fn, "rb") as fh:
             out[name] = fh.read()
-    assert devloop.LAST_STATS["abort"] == 0
     assert out["port"] == out["ref"]
     assert out["port"] != out["default"]
+    assert out["port_frontier"] == out["ref_frontier"]
+    assert out["port_frontier"] != out["default"]
 
 
 def test_kernel_abort_falls_back_to_host_engine(tmp_path, monkeypatch):

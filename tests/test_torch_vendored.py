@@ -185,6 +185,7 @@ COPIED = {
         "tuples_from_arrays", "multimums", "multimems",
         "multimums_oracle"],
     "index.devloop": ["_next_pow2", "forest_pop_order"],
+    "index.devfrontier": ["_next_pow2"],
     "align.rem": [
         "graphalign", "_enum_pick", "_pairwise_fast_eligible",
         "_rem2_native_loop", "_rem2_replay_native", "_rem2_replay",
@@ -227,7 +228,8 @@ def test_copied_function_equals_original(mod, name):
 # the regions it leaves out must still be there, in order; what the port
 # adds is its own.  A region is (first line, last line) of the original,
 # matched after stripping; single lines stand for themselves, and
-# "x|y" is a line x followed by a line y.
+# "x|y" is a line x followed by a line y.  A name "port:original" holds a
+# port function to an original of another name.
 CHANGED = {
     # only the native and numpy routes; the device routes raise
     ("index.suffix", "build_esa"): [
@@ -300,6 +302,30 @@ CHANGED = {
         ("try:", "nroot = 256"),
         ("res = rem_device_multi(",) * 2,
     ],
+    # the per-level frontier on a device given: no mesh, no fast-loop
+    # prelude (the port's routing picks the loops before it), stage
+    # seconds kept; the repair comment cites a TPU measurement
+    ("align.rem", "_align_loop_frontier"): [
+        ("mesh=None,",) * 2,
+        ('"""Device-resident level-synchronous recursion (the BASELINE.json',
+         "— byte-identical to the serial engine's GFA.\"\"\""),
+        ("if mesh is None:", "return steps"),
+        ("steps = _rem_device_multi_loop(G, t, root, cfg)", "return steps"),
+        ("mesh=mesh,", "nsep=main.nsep,"),
+        ("# ---- boundary repair on affected leading children (batched:",
+         "# to the batched transfer on this part) "
+         "--------------------------"),
+    ],
+    # the shim's comment reworded
+    ("index.devfrontier", "SegDesc"): [
+        ("# the MumPicker reads idx.main.nsamples via ESAIndex; here the",
+         "so keep a compatible shim"),
+    ],
+    # the numpy walk alone, as the reference the native walk is tested
+    # against (the port's _repair_host raises without the native library)
+    ("index.devfrontier", "_repair_host_plain:_repair_host"): [
+        ("def _repair_host(SA: np.ndarray", "pass"),
+    ],
     # the device route only (frontier=True's, on a device given): no
     # frontier or threads switch, no mesh, the serial host engine and the
     # level-parallel host loop are not entry points here
@@ -328,8 +354,11 @@ def _kept_lines(orig_src, regions):
 
 @pytest.mark.parametrize("mod,name", sorted(CHANGED), ids=lambda v: v)
 def test_changed_function_keeps_the_rest_of_its_original(mod, name):
-    orig = getattr(importlib.import_module("reveal_tpu." + mod), name)
-    port = getattr(importlib.import_module("reveal_tpu_torch." + mod), name)
+    port_name, _, orig_name = name.partition(":")
+    orig = getattr(importlib.import_module("reveal_tpu." + mod),
+                   orig_name or port_name)
+    port = getattr(importlib.import_module("reveal_tpu_torch." + mod),
+                   port_name)
     kept = _kept_lines(inspect.getsource(orig), CHANGED[(mod, name)])
     have = iter(ln.strip() for ln in inspect.getsource(port).splitlines())
     for ln in kept:
