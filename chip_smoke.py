@@ -1,14 +1,15 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi|frontier]
+                          [--only kernels|profile|multi|frontier|single]
                           [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
 and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
 phases 1-2, the window-resolve checks of phase 3 and phase 5c;
-``--only frontier`` phases 1-2 and 5d.
+``--only frontier`` phases 1-2 and 5d; ``--only single`` phases 1-2 and
+5e.
 ``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
 instead of this one (with ``--only profile``: the parent's forest timed
 beside this one's, in turns, on one card in one go).
@@ -55,9 +56,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    multi-genome device loop), its GFA held byte for byte against the
    port's host engine: (a) 6 x 100 kbp, (b) 8 x 50 kbp (8 paths), (c) 3
    x 300 kbp with one genome cut in two contigs (4 paths).  Every repair
-   round launches window-resolve once, no repair-pass launch.  Each case
-   once more under ``torch.profiler`` (launches, host syncs, busy
-   share); case (a) three times more: with a synchronised clock around
+   round launches window-resolve once, no repair-pass launch.  Case (a)
+   four times more: under ``torch.profiler`` (launches, host syncs, busy
+   share), with a synchronised clock around
    the loop's stages, with torch's sync debug mode putting every host
    sync to the line of the port that made it, and with every repair
    round's window-resolve held exactly against its plain version
@@ -68,12 +69,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against the port's host engine and every path of the GFA spelling its
    input: (a) ``simulate_population(6, 1_000_000, seed)``, past
    ``--maxmums``: the multi loop declines (``ABORT_MAXMUMS``) and the
-   frontier takes it; once more under ``torch.profiler`` (launches, host
-   syncs, busy share); (b) a 2 x 2 Mbp pair, each genome cut into contigs
+   frontier takes it; (b) a 2 x 2 Mbp pair, each genome cut into contigs
    of 1.9 Mbp, 80 kbp and the rest; (c) nine paths of 50 kbp, past the
    multi loop's eight; (d) 4 x 50 kbp forced onto the frontier on the
    card and on the CPU, at the defaults and with ``--notrim``: equal GFA
    bytes;
+5e. the single-root device loop (the whole pairwise recursion from the
+   root in the forest's level loop with the flat chain, its repair passes
+   on the repair-pass kernel) through ``cli rem --frontier --device
+   cuda``, the host engine refused inside it: (a) ``simulate_population(2,
+   500_000, seed)`` under ``REVEAL_TPU_DEVLOOP_MODE=full``, taken whole:
+   GFA bytes against the host engine's, one repair launch a pass and no
+   window-resolve launch; the default route and the host engine timed on
+   the same pair; the loop again with a synchronised clock around its
+   stages, under ``torch.profiler`` (launches, host syncs, busy share,
+   peak memory; ``chain_flat``'s calls, rounds, launches, host syncs and
+   device time apart), and with every repair pass held against its plain
+   version (plain, kernel, kernel, plain; exact); (b) 2 x 1 Mbp under
+   mode full: the loop aborts with ``ABORT_CHAIN_ROUNDS`` at level 0 (at
+   seed 1) and the per-level frontier takes the pair, node state and text
+   against the host engine's; (c) 2 x 200 kbp by the default route with
+   the forest stood in to decline: the loop takes it, GFA bytes against
+   the host engine's;
 6. ``refine``: a six-path chain of bubbles (64 with alleles near 500 bp,
    8 near 1900 bp, 10-15% substitutions and indels up to 12 bp between
    alleles) written from ``--seed``, through ``cli refine --all
@@ -94,7 +111,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and copy back).  A 13-bubble graph goes through the native float64
    route for stage 1 beside the card's, with the differing bubbles
    counted; the MEA-score kernel and the relaxation products are timed
-   at the chain's shapes;
+   at the chain's shapes.  The 72-bubble run is repeated with ``--nproc
+   4`` (the per-bubble MSA in processes forked after the card's stages:
+   the serial run's bytes).  The posterior self-check
+   (``hmm/selfcheck.py``) runs on the card, and ``refine --logadd-compat``
+   on three small bubbles on the card and on the CPU (equal bytes);
 6b. a graph of one six-path bubble of about 4 kbp (its chain tensor over
    ``msa.CHAIN_BYTES_CAP``) and four near 500 bp: the chain for four
    bubbles and the two-phase route for one in one run;
@@ -120,6 +141,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -291,19 +313,17 @@ def write_genomes(seed, length, workdir):
     return fastas, sum(len(seq) for _n, seq, _i in pop)
 
 
-def check_repair(fastas, workdir):
-    """The repair-pass kernel against its plain version on the card, at
-    the inputs of every repair pass of the main path.
+def hold_repair_passes(run):
+    """``run()`` with every repair pass held against its plain version.
 
-    ``repair.repair_segments`` is wrapped for one ``rem`` run: each pass
-    is first run on fresh copies of SA, LCP and BWT plain, kernel,
-    kernel, plain (``devloop.repair_rounds_plain``, the batched rounds,
-    against the kernel), each call between two CUDA events, the outputs
-    and counters held exactly equal; then the pass goes on as the path
-    runs it.  Returns the row of the kernels line."""
+    ``repair.repair_segments`` is wrapped for the run: each pass is first
+    run on fresh copies of SA, LCP and BWT plain, kernel, kernel, plain
+    (``devloop.repair_rounds_plain``, the batched rounds, against the
+    kernel), each call between two CUDA events, the outputs and counters
+    held exactly equal; then the pass goes on as the path runs it.
+    Returns (the passes' numbers, the largest difference: 0)."""
     import torch
 
-    from reveal_tpu_torch import cli
     from reveal_tpu_torch.index import devloop, repair
 
     segments = repair.repair_segments
@@ -358,12 +378,17 @@ def check_repair(fastas, workdir):
 
     repair.repair_segments = hold
     try:
-        cli.main(["rem", *fastas, "--frontier", "--device", "cuda", "-o",
-                  os.path.join(workdir, "repair_check.gfa")])
+        run()
     finally:
         repair.repair_segments = segments
     if not passes:
-        raise AssertionError("the rem run made no repair pass")
+        raise AssertionError("the run made no repair pass")
+    return passes, worst
+
+
+def repair_summary(passes, worst, what):
+    """Prints the held passes of one path; returns their totals (ms and
+    bounds a pass, sums, the longest run, moved slots)."""
     k = len(passes)
 
     def total(key):
@@ -373,14 +398,14 @@ def check_repair(fastas, workdir):
     bound_ms = total("bound_bytes_ms") / k
     chain_ms = total("bound_chain_ms") / k
     print("repair_pass: kernel equal to plain (SA, LCP, BWT, counters; "
-          "max_abs_err %d) on all %d repair passes of the main path; per "
+          "max_abs_err %d) on all %d repair passes of %s; per "
           "pass from CUDA events on fresh copies (plain, kernel, kernel, "
           "plain): kernel %.6f ms (sum %.6f, max %.6f), plain %.6f ms (sum "
           "%.6f, max %.6f); candidates applied %d, longest run %d, moved "
           "slots %d (%d bytes); bound per pass %.6f ms by bytes at 3.35 "
           "TB/s, %.6f ms as the longest run's chain of dependent L2 round "
           "trips (260 clocks at 1.98 GHz each)"
-          % (worst, k, ms, total("ms"), max(p["ms"] for p in passes),
+          % (worst, k, what, ms, total("ms"), max(p["ms"] for p in passes),
              plain_ms, total("plain_ms"),
              max(p["plain_ms"] for p in passes), total("applied"),
              max(p["chain"] for p in passes), total("moved"),
@@ -392,23 +417,39 @@ def check_repair(fastas, workdir):
               % (i, p["rc"], p["applied"], p["chain"], p["moved"], p["ms"],
                  p["ms"] * 1e3 / max(p["chain"], 1), p["plain_ms"]))
     return {
-        "name": "repair_pass",
-        "route": "cuda",
-        "source": "reveal_tpu_torch/csrc/repair_pass.cu",
-        "replaces": "reveal_tpu/index/devloop.py:114",
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "bound_latency_ms": chain_ms,
-        "library_ms": None,
         "passes": k,
         "ms_sum": total("ms"),
         "plain_ms_sum": total("plain_ms"),
         "longest_run": max(p["chain"] for p in passes),
         "moved_slots": total("moved"),
     }
+
+
+def check_repair(fastas, workdir):
+    """The repair-pass kernel against its plain version on the card, at
+    the inputs of every repair pass of the main path (the forest of
+    ``cli rem``: ``hold_repair_passes``).  Returns the row of the
+    kernels line."""
+    from reveal_tpu_torch import cli
+
+    passes, worst = hold_repair_passes(lambda: cli.main([
+        "rem", *fastas, "--frontier", "--device", "cuda", "-o",
+        os.path.join(workdir, "repair_check.gfa")]))
+    row = {
+        "name": "repair_pass",
+        "route": "cuda",
+        "source": "reveal_tpu_torch/csrc/repair_pass.cu",
+        "replaces": "reveal_tpu/index/devloop.py:114",
+        "library_ms": None,
+    }
+    row.update(repair_summary(passes, worst, "the main path"))
+    return row
 
 
 def _related_pairs(rng, count, lo, hi):
@@ -1059,30 +1100,69 @@ def _stage_text(secs, calls):
                      for n in secs)
 
 
-def trace_counts(prof):
+def trace_counts(prof, mark=None):
     """Calls by name (host side) and (microseconds, calls) by name (the
     card's kernels and copies) from the raw events of a finished
-    ``torch.profiler`` run, without building its event tree (which
-    takes minutes at a few hundred thousand launches)."""
+    ``torch.profiler`` run, in one pass and without building its event
+    tree (which takes minutes at a few hundred thousand launches).  With
+    ``mark``, the name of ``record_function`` ranges, also the ranges'
+    numbers: calls, traced seconds, the launches and host syncs made
+    inside them, and the device time of the kernels and copies those
+    ranges' operations started (matched by the profiler's correlation
+    ids).  The ranges' own spans on the card's timeline are not device
+    time."""
+    import numpy as np
     from torch.autograd import DeviceType
 
     counts, device = {}, {}
+    spans, host, linked = [], [], []
     for evt in prof.profiler.kineto_results.events():
         name = evt.name()
         if evt.device_type() == DeviceType.CUDA:
+            if name == mark:
+                continue
+            dur = evt.duration_ns()
             us, n = device.get(name, (0.0, 0))
-            device[name] = (us + evt.duration_ns() / 1e3, n + 1)
+            device[name] = (us + dur / 1e3, n + 1)
+            if mark:
+                linked.append((evt.linked_correlation_id(), dur))
         else:
             counts[name] = counts.get(name, 0) + 1
-    return counts, device
+            if mark:
+                t = evt.start_ns()
+                if name == mark:
+                    spans.append((t, t + evt.duration_ns()))
+                else:
+                    host.append((t, evt.correlation_id(),
+                                 name in LAUNCH_CALLS,
+                                 name == "cudaStreamSynchronize"))
+    if not mark:
+        return counts, device, None
+    spans.sort()
+    lo = np.array([a for a, _b in spans], dtype=np.int64)
+    hi = np.array([b for _a, b in spans], dtype=np.int64)
+    t = np.array([h[0] for h in host], dtype=np.int64)
+    k = np.searchsorted(lo, t, side="right") - 1
+    inside = (k >= 0) & (t < hi[np.maximum(k, 0)]) if len(lo) else (
+        np.zeros(len(t), bool))
+    corr = {h[1] for h, ok in zip(host, inside) if ok}
+    return counts, device, {
+        "calls": len(spans),
+        "traced_s": float((hi - lo).sum()) / 1e9,
+        "launches": sum(h[2] for h, ok in zip(host, inside) if ok),
+        "host_syncs": sum(h[3] for h, ok in zip(host, inside) if ok),
+        "device_s": sum(d for c, d in linked if c in corr) / 1e9,
+    }
 
 
-def profile_loop(module, fn_name, run):
+def profile_loop(module, fn_name, run, mark=None):
     """``run()`` with each call of ``module.fn_name`` traced under
     ``torch.profiler`` (the last call's trace is kept).  Host syncs are
     the ``cudaStreamSynchronize`` calls (the host waits for the card);
     ``scalar_reads`` counts ``aten::_local_scalar_dense`` (``.item()``,
-    ``int()``, ``bool()`` of a device value), a subset of them."""
+    ``int()``, ``bool()`` of a device value), a subset of them.  With
+    ``mark``, the numbers of its ranges are under "marked"
+    (``trace_counts``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1104,7 +1184,7 @@ def profile_loop(module, fn_name, run):
         run()
     finally:
         setattr(module, fn_name, fn)
-    counts, device = trace_counts(traced["prof"])
+    counts, device, marked = trace_counts(traced.pop("prof"), mark)
     device_us = sum(us for us, _n in device.values())
     return {
         "launches": sum(v for k, v in counts.items() if k in LAUNCH_CALLS),
@@ -1118,6 +1198,7 @@ def profile_loop(module, fn_name, run):
                  "not measured (no device time traced)"),
         "device": sorted(((us, n, k) for k, (us, n) in device.items()),
                          reverse=True),
+        "marked": marked,
     }
 
 
@@ -1459,7 +1540,8 @@ def run_multi(seed, workdir):
         fastas, total_bp, _want = write_population(n, length, seed, workdir,
                                                    split)
         st = run_multi_case(label, fastas, total_bp, workdir)
-        st["profile"] = profile_multi(label, fastas, workdir)
+        if label == "a":
+            st["profile"] = profile_multi(label, fastas, workdir)
         cases[label] = (fastas, st)
     fastas_a, st_a = cases["a"]
     clock_multi(fastas_a, workdir)
@@ -1479,7 +1561,8 @@ def run_multi(seed, workdir):
         "multi_cases": {
             label: {k: st[k] for k in ("paths", "levels", "launches",
                                        "host_syncs", "loop_seconds", "e2e",
-                                       "host", "peak", "profile")}
+                                       "host", "peak", "profile")
+                    if k in st}
             for label, (_f, st) in cases.items()},
     }
 
@@ -1602,22 +1685,6 @@ def run_frontier_case(label, fastas, total_bp, want, workdir, declines):
     return st
 
 
-def profile_frontier(label, fastas, workdir):
-    """A frontier case again with ``_align_loop_frontier`` traced
-    (``profile_loop``): kernel launches, host syncs, device time and the
-    card's busy share."""
-    from reveal_tpu_torch.align import rem
-    from reveal_tpu_torch.index import devfrontier
-
-    out = os.path.join(workdir, "frontier_profile_%s.gfa" % label)
-    prof = profile_loop(rem, "_align_loop_frontier",
-                        lambda: _frontier_cli(fastas, out))
-    print_profile("frontier case %s" % label, prof,
-                  ", the frontier's own counted syncs %d"
-                  % devfrontier.LAST_STATS["host_syncs"])
-    return prof
-
-
 def frontier_gfa(fastas, device, out, **cfg):
     """``fastas`` forced onto the frontier (``_align_loop_frontier``) on
     ``device``, written as the CLI writes it; returns the GFA's bytes."""
@@ -1641,16 +1708,14 @@ def frontier_gfa(fastas, device, out, **cfg):
 
 
 def run_frontier(seed, workdir):
-    """Phase 5d: cases (a)-(c) through ``cli rem --device cuda``, (a)
-    once more traced, and (d) the card against the CPU."""
+    """Phase 5d: cases (a)-(c) through ``cli rem --device cuda`` and (d)
+    the card against the CPU."""
     for label, n, length, cuts in FRONTIER_CASES:
         fastas, total_bp, want = write_population(n, length, seed, workdir,
                                                   cuts=cuts)
         run_frontier_case(label, fastas, total_bp, want, workdir,
                           "ABORT_MAXMUMS" if label == "a" else
                           "not eligible" if n > 8 else None)
-        if label == "a":
-            profile_frontier(label, fastas, workdir)
     n, length = FRONTIER_CARD_CPU
     fastas, _bp, _want = write_population(n, length, seed, workdir)
     for cfg in ({}, {"trim": False}):
@@ -1665,6 +1730,289 @@ def run_frontier(seed, workdir):
         print("frontier case d (%d x %d bp%s): GFA on the card equal to the "
               "CPU's (%d bytes)" % (n, length, ", --notrim" if cfg else "",
                                     len(got["cuda"])))
+
+
+# ----------------------------------------------------------------------
+# phase 5e: the single-root device loop
+# ----------------------------------------------------------------------
+# bp a genome of each case, simulate_population(2, L, seed): (a) the main
+# case, taken whole by the loop under REVEAL_TPU_DEVLOOP_MODE=full (the
+# JAX loop on a CPU at seed 1: 27 levels, 4,344 anchors, 3 dispatches);
+# (b) past the loop's reach: the root's chain needs more than 384
+# wavefront rounds (the JAX loop on a CPU at seed 1 aborts with
+# ABORT_CHAIN_ROUNDS at level 0), so the per-level frontier takes it;
+# (c) the default route with the forest stood in to decline
+SINGLE_CASES = (("a", 500_000), ("b", 1_000_000), ("c", 200_000))
+# the level loop's stage functions with the flat chain, in level order
+SINGLE_STAGES = ("enumerate_candidates", "trim_dim", "chain_flat",
+                 "log_anchors", "children", "split_level", "repair_pass")
+
+
+@contextlib.contextmanager
+def devloop_mode(mode):
+    """``REVEAL_TPU_DEVLOOP_MODE`` set to ``mode`` (None: unset) inside a
+    ``with`` block."""
+    old = os.environ.pop("REVEAL_TPU_DEVLOOP_MODE", None)
+    if mode is not None:
+        os.environ["REVEAL_TPU_DEVLOOP_MODE"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("REVEAL_TPU_DEVLOOP_MODE", None)
+        if old is not None:
+            os.environ["REVEAL_TPU_DEVLOOP_MODE"] = old
+
+
+def _read(path):
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def host_reference(fastas, out):
+    """The port's serial host engine on a pair: (node state, text, the
+    GFA's bytes as the CLI writes a pair, seconds)."""
+    from reveal_tpu_torch.align.rem import align_genomes_host
+    from reveal_tpu_torch.core.io_gfa import seq2node, write_gfa
+
+    t0 = time.perf_counter()
+    G, idx = align_genomes_host(fastas)
+    state, T = node_state(G), idx.main.T.copy()
+    seq2node(G, idx.main.T)
+    write_gfa(G, idx.main.T, outputfile=out)
+    return state, T, _read(out), time.perf_counter() - t0
+
+
+def profile_split(module, outer, inner, run, count):
+    """``profile_loop`` over ``module.outer`` with each call of
+    ``module.inner`` marked by ``torch.profiler.record_function``: the
+    whole trace's numbers, and under ``inner`` those of the marked calls
+    (``trace_counts``) with the sum of ``count(result)`` over them."""
+    import torch
+
+    fn = getattr(module, inner)
+    mark = "chip_smoke:" + inner
+    counted = [0]
+
+    def marked(*args, **kw):
+        with torch.profiler.record_function(mark):
+            res = fn(*args, **kw)
+        counted[0] += count(res)
+        return res
+
+    setattr(module, inner, marked)
+    try:
+        prof = profile_loop(module, outer, run, mark)
+    finally:
+        setattr(module, inner, fn)
+    prof[inner] = dict(prof.pop("marked"), count=counted[0])
+    return prof
+
+
+def _single_cli(fastas, out, mode):
+    """``cli rem --device cuda`` under ``REVEAL_TPU_DEVLOOP_MODE`` =
+    ``mode`` with the host engine refused (``_frontier_cli``)."""
+    with devloop_mode(mode):
+        return _frontier_cli(fastas, out)
+
+
+def run_single_a(fastas, total_bp, workdir):
+    """Case (a): the single-root loop takes the pair whole (mode full);
+    GFA bytes against the host engine's, one repair launch a pass and no
+    window-resolve launch; the default route and the host engine timed on
+    the same input; the loop again with its stages clocked, under
+    ``torch.profiler`` (chain_flat apart) and with every repair pass held
+    against plain.  Returns the repair row's numbers of this path."""
+    import torch
+
+    from reveal_tpu_torch.index import devloop, repair
+    from reveal_tpu_torch.index import window_resolve as wr
+
+    state, _T, host_bytes, t_host = host_reference(
+        fastas, os.path.join(workdir, "single_a_host.gfa"))
+    out = os.path.join(workdir, "single_a.gfa")
+    torch.cuda.reset_peak_memory_stats()
+    repair.LAUNCHES = wr.LAUNCHES = 0
+    seen, t_e2e = _single_cli(fastas, out, "full")
+    launches, wr_launches = repair.LAUNCHES, wr.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    st = dict(devloop.LAST_STATS)
+    if st.get("abort") != 0 or st.get("fallback") is not None or (
+            "forest" in st):
+        raise AssertionError("the single-root loop did not take case a "
+                             "whole: %r" % st)
+    if _read(out) != host_bytes or seen["state"] != state:
+        raise AssertionError("single-root case a: the GFA (%d bytes) differs "
+                             "from the host engine's (%d bytes)"
+                             % (len(_read(out)), len(host_bytes)))
+    passes = st["repair_rounds_total"]
+    if not (launches > 0 and launches == st["repair_launches"] == passes
+            and (st["dispatches"] > 1 or passes == 2 * st["levels"])):
+        raise AssertionError(
+            "repair_pass launched %d times for %d passes (%d levels, %d "
+            "dispatches)" % (launches, passes, st["levels"],
+                             st["dispatches"]))
+    if wr_launches:
+        raise AssertionError("window_resolve launched %d times on the "
+                             "single-root loop" % wr_launches)
+    print("single-root case a (2 x %d bp, REVEAL_TPU_DEVLOOP_MODE=full): "
+          "GFA byte-identical to the host engine's (%d bytes), host engine "
+          "not run inside; levels %d, anchors %d, dispatches %d, chain "
+          "rounds %d (last dispatch), trim rows %d, repair passes %d "
+          "(repair_pass launches %d, window_resolve 0), candidates applied "
+          "%d, longest run %d, moved slots %d; loop %.6f s, end to end "
+          "(fastas -> GFA, CLI in-process) %.6f s (%.6f Mbp/s); peak device "
+          "memory %.6f GB"
+          % (total_bp // 2, len(host_bytes), st["levels"], st["anchors"],
+             st["dispatches"], st["chain_steps"], st["trim_steps"], passes,
+             launches, st["repair_applied"], st["repair_chain_max"],
+             st["repair_moved_slots"], st["loop_seconds"], t_e2e,
+             total_bp / 1e6 / t_e2e, peak / 1e9))
+
+    _seen, t_hybrid = _single_cli(
+        fastas, os.path.join(workdir, "single_a_hybrid.gfa"), None)
+    hyb = dict(devloop.LAST_STATS)
+    if (_read(os.path.join(workdir, "single_a_hybrid.gfa")) != host_bytes
+            or hyb.get("fallback") is not None or "forest" not in hyb):
+        raise AssertionError("the default route on case a: %r" % hyb)
+    print("single-root case a, the same pair: single-root loop %.6f s "
+          "(end to end %.6f s); default route (host prefix %.6f s + forest "
+          "%.6f s, end to end %.6f s); host engine %.6f s"
+          % (st["loop_seconds"], t_e2e, hyb["host_prefix_seconds"],
+             hyb["forest_seconds"], t_hybrid, t_host))
+
+    def full():
+        _single_cli(fastas, os.path.join(workdir, "single_a_run.gfa"),
+                    "full")
+
+    secs, calls, t_clock = clock_stages(devloop, SINGLE_STAGES, full)
+    print("single-root case a with a synchronised host clock around each "
+          "call of the loop's stages: %s; loop %.6f s, end to end %.6f s"
+          % (_stage_text(secs, calls), devloop.LAST_STATS["loop_seconds"],
+             t_clock))
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_split(devloop, "rem_device_loop", "chain_flat", full,
+                         lambda res: res[-1])
+    print_profile("single-root case a (the loop)", prof,
+                  "; peak device memory %.6f GB"
+                  % (torch.cuda.max_memory_allocated() / 1e9))
+    cf = prof["chain_flat"]
+    print("single-root case a, chain_flat apart: %d calls (every level of "
+          "every dispatch), %d wavefront rounds, %.6f s on the synchronised "
+          "clock (%.6f ms a round; the loop's other stages %.6f s); traced: "
+          "%d kernel launches (%.1f a round), %d host syncs, device time "
+          "%.6f s of its %.6f s traced"
+          % (cf["calls"], cf["count"], secs["chain_flat"],
+             secs["chain_flat"] * 1e3 / max(cf["count"], 1),
+             sum(secs.values()) - secs["chain_flat"], cf["launches"],
+             cf["launches"] / max(cf["count"], 1), cf["host_syncs"],
+             cf["device_s"], cf["traced_s"]))
+    for us, count, key in prof["device"]:
+        if "repair_pass" in key:
+            print("  the port's own kernel %s: device %.6f s in %d calls, "
+                  "%.6f ms a call" % (key[:90], us / 1e6, count,
+                                      us / 1e3 / count))
+
+    held_passes, worst = hold_repair_passes(full)
+    if len(held_passes) != passes:
+        raise AssertionError("the held run made %d repair passes, the main "
+                             "run %d" % (len(held_passes), passes))
+    held = repair_summary(held_passes, worst, "the single-root loop (case a)")
+    return dict(held, launches=launches, levels=st["levels"],
+                dispatches=st["dispatches"], loop_seconds=st["loop_seconds"],
+                chain_rounds=cf["count"],
+                chain_flat_seconds=secs["chain_flat"],
+                profile={k: prof[k] for k in ("launches", "host_syncs",
+                                              "busy", "device_s",
+                                              "traced_wall_s")})
+
+
+def run_single_b(fastas, total_bp, want, workdir):
+    """Case (b): mode full on a pair past the loop's reach: the loop
+    aborts at level 0 with ABORT_CHAIN_ROUNDS and the per-level frontier
+    takes the input on the card, with the host engine's node state and
+    text, every path spelling its input."""
+    import numpy as np
+
+    from reveal_tpu_torch.index import devfrontier, devloop
+
+    state, T, host_bytes, t_host = host_reference(
+        fastas, os.path.join(workdir, "single_b_host.gfa"))
+    out = os.path.join(workdir, "single_b.gfa")
+    seen, t_e2e = _single_cli(fastas, out, "full")
+    st, fr = dict(devloop.LAST_STATS), dict(devfrontier.LAST_STATS)
+    why = "single-root loop: kernel abort code 8 (ABORT_CHAIN_ROUNDS)"
+    if (st.get("abort") != 8 or st.get("levels") != 1
+            or st.get("fallback") != why or fr.get("fallback") != why
+            or not fr.get("applies")):
+        raise AssertionError("single-root case b: %r / %r" % (st, fr))
+    if seen["state"] != state or not np.array_equal(seen["T"], T):
+        raise AssertionError("single-root case b: node state or text differ "
+                             "from the host engine's")
+    _check_paths(out, want)
+    print("single-root case b (2 x %d bp, REVEAL_TPU_DEVLOOP_MODE=full): the "
+          "loop declined (%s) after %d dispatches, chain rounds %d, trim "
+          "rows %d, in %.6f s; the per-level frontier took the pair: "
+          "%d levels, %d apply calls, %d anchor steps, %.6f s; node state "
+          "and text equal to the host engine's, every path spells its "
+          "input, GFA bytes %s the host engine's; end to end %.6f s, host "
+          "engine %.6f s"
+          % (total_bp // 2, st["fallback"], st["dispatches"],
+             st["chain_steps"], st["trim_steps"], st["loop_seconds"],
+             fr["levels"], fr["applies"], fr["steps"], fr["seconds"],
+             "equal to" if _read(out) == host_bytes
+             else "differ (node numbering) from", t_e2e, t_host))
+
+
+def run_single_c(fastas, total_bp, workdir):
+    """Case (c): the default route with the forest stood in to decline
+    (ABORT_DUP_REF, as the CPU tests do): the single-root loop takes the
+    pair on the card, with the host engine's GFA bytes."""
+    from reveal_tpu_torch.index import devloop, repair
+
+    _state, _T, host_bytes, t_host = host_reference(
+        fastas, os.path.join(workdir, "single_c_host.gfa"))
+    out = os.path.join(workdir, "single_c.gfa")
+    forest = devloop.rem_device_forest
+
+    def declines(*_a, **_k):
+        devloop.LAST_STATS.clear()
+        devloop.LAST_STATS["abort"] = devloop.ABORT_DUP_REF
+
+    devloop.rem_device_forest = declines
+    repair.LAUNCHES = 0
+    try:
+        _seen, t_e2e = _single_cli(fastas, out, None)
+    finally:
+        devloop.rem_device_forest = forest
+    st = dict(devloop.LAST_STATS)
+    why = "forest: kernel abort code 4 (ABORT_DUP_REF)"
+    if (st.get("fallback") != why or st.get("abort") != 0
+            or repair.LAUNCHES != st.get("repair_launches")
+            or not repair.LAUNCHES or _read(out) != host_bytes):
+        raise AssertionError("single-root case c: %r, %d repair launches"
+                             % (st, repair.LAUNCHES))
+    print("single-root case c (2 x %d bp, the forest stood in to decline): "
+          "%s; the single-root loop took the pair: levels %d, repair "
+          "passes %d (launches %d), loop %.6f s, end to end %.6f s; GFA "
+          "byte-identical to the host engine's (%d bytes, %.6f s)"
+          % (total_bp // 2, st["fallback"], st["levels"],
+             st["repair_rounds_total"], repair.LAUNCHES, st["loop_seconds"],
+             t_e2e, len(host_bytes), t_host))
+
+
+def run_single(seed, workdir):
+    """Phase 5e: cases (a)-(c).  Returns the repair row's numbers of the
+    single-root path (case a)."""
+    out = None
+    for label, length in SINGLE_CASES:
+        fastas, total_bp, want = write_population(2, length, seed, workdir)
+        if label == "a":
+            out = run_single_a(fastas, total_bp, workdir)
+        elif label == "b":
+            run_single_b(fastas, total_bp, want, workdir)
+        else:
+            run_single_c(fastas, total_bp, workdir)
+    return out
 
 
 def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
@@ -2043,6 +2391,21 @@ def run_refine(seed, workdir):
     _check_paths(out, want)
     print("refine: every path of the refined GFA spells its input; chain "
           "shapes (N, Lq): %s" % sorted(st["chain_shapes"].items()))
+    # the same with the per-bubble MSA in four processes forked after the
+    # card's stages (they must get host data only)
+    out4 = os.path.join(workdir, "bubbles.refined.nproc4.gfa")
+    _l4, st4, secs4 = _refine_on_card(gfa, out4, "refine --nproc 4", "chain",
+                                      extra=("--nproc", "4"))
+    if st4["pool_processes"] != 4 or _read(out4) != _read(out):
+        raise AssertionError("refine --nproc 4: %d pool processes, GFA "
+                             "equal to the serial run's: %s"
+                             % (st4["pool_processes"],
+                                _read(out4) == _read(out)))
+    print("refine --nproc 4 --device cuda: GFA byte-identical to the serial "
+          "run's (%d bytes); end to end %.6f s (host MSA %.6f s) against "
+          "%.6f s (host MSA %.6f s) serial"
+          % (len(_read(out)), secs4, st4["msa_seconds"], secs,
+             st["msa_seconds"]))
     with _ChainWatch() as watch:
         chain = chain_split(bubbles)
     shapes = check_chain_scans(watch.scans)
@@ -2107,6 +2470,53 @@ def run_refine(seed, workdir):
              len(nat["digests"]), nat["stage1_seconds"],
              card["stage1_seconds"], time.perf_counter() - t0))
     return launches, split, shapes
+
+
+def run_refine_options(seed, workdir):
+    """The posterior self-check on the card (``hmm/selfcheck.py``), and
+    ``refine --logadd-compat`` on three small bubbles on the card and on
+    the CPU: every posterior from the table twin on the host, the same
+    bytes on both devices."""
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.hmm import msa, refine
+    from reveal_tpu_torch.hmm.selfcheck import check_posterior_oracle
+
+    # the reference's lengths up to 180 bp (the float64 oracle is a
+    # Python loop: 2.3 s at 180 bp, 17 s at 511 and 33 s at 700 on a host)
+    lengths = (23, 57, 180)
+    t0 = time.perf_counter()
+    err, terr, name = check_posterior_oracle(lengths=lengths, device="cuda")
+    print("posterior self-check on %s (pairs of %s bp against the float64 "
+          "oracle): max |posterior error| %.3e (limit max(2e-3, 4e-5 L)), "
+          "max |total log-prob error| %.3e (limit 5e-2), %.6f s"
+          % (name, ", ".join(map(str, lengths)), err, terr,
+             time.perf_counter() - t0))
+    gfa = os.path.join(workdir, "compat_bubbles.gfa")
+    want = write_bubble_chain(gfa, seed, n_small=3, small=40, n_big=0,
+                              npaths=3, flank=20)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(workdir, "compat_%s.gfa" % dev)
+        t0 = time.perf_counter()
+        try:
+            cli.main(["refine", gfa, "--all", "--minsize", "2", "--device",
+                      dev, "--logadd-compat", "-o", out])
+        finally:
+            msa.set_logadd_compat(False)
+        st = dict(refine.LAST_STATS)
+        if not st["compat"] or st["route"] != "two-phase" or (
+                st["chain_bubbles"] or st["refined"] != 3):
+            raise AssertionError("refine --logadd-compat on %s: %r"
+                                 % (dev, st))
+        got[dev] = (_read(out), time.perf_counter() - t0)
+        _check_paths(out, want)
+    if got["cuda"][0] != got["cpu"][0]:
+        raise AssertionError("refine --logadd-compat: the card's GFA differs "
+                             "from the CPU's")
+    print("refine --logadd-compat, 3 bubbles of 3 paths near 40 bp: GFA on "
+          "the card equal to the CPU's (%d bytes; %.6f s and %.6f s), the "
+          "two-phase route with the table twin's posteriors on the host"
+          % (len(got["cpu"][0]), got["cuda"][1], got["cpu"][1]))
 
 
 def run_mixed(seed, workdir):
@@ -2270,13 +2680,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
     ap.add_argument("--only", choices=["kernels", "profile", "multi",
-                                       "frontier"],
+                                       "frontier", "single"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
                          "'profile': phases 1-2 and 5b only; 'multi': "
                          "phases 1-2, window-resolve and 5c; 'frontier': "
-                         "phases 1-2 and 5d; each prints no result lines")
+                         "phases 1-2 and 5d; 'single': phases 1-2 and 5e; "
+                         "each prints no result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
                          "parent's, to time it beside this one)")
@@ -2341,6 +2752,10 @@ def main(argv=None):
             run_frontier(args.seed, wd)
             print("chip_smoke --only frontier: phases 1-2 and 5d passed")
             return
+        if args.only == "single":
+            run_single(args.seed, wd)
+            print("chip_smoke --only single: phases 1-2 and 5e passed")
+            return
         rows = [check_window_resolve(dev)] + check_pairhmm(dev)
         rows.append(check_repair(fastas, wd))
         rows.append(check_mea_score(dev))
@@ -2352,7 +2767,9 @@ def main(argv=None):
         profile_forest(fastas, total_bp, wd, "this checkout:")
         multi = run_multi(args.seed, wd)
         run_frontier(args.seed, wd)
+        single = run_single(args.seed, wd)
         launches, two_phase_batches, scans = run_refine(args.seed, wd)
+        run_refine_options(args.seed, wd)
         main_scans = [dict(time_mea(p, nrows, 10), launches=n)
                       for p, nrows, n in scans.values()]
         del scans
@@ -2370,6 +2787,8 @@ def main(argv=None):
     rows[1]["launches"] = launches["fwd"]
     rows[2]["launches"] = launches["bwd"]
     rows[3]["launches"] = rem_launches
+    # the repair passes of the single-root loop (phase 5e case a)
+    rows[3]["single_root"] = single
     rows[4]["launches"] = launches["mea"]
     for key, row in (("fwd_ms", rows[1]), ("bwd_ms", rows[2])):
         # what the two-phase route launched: batch, plan and time a launch

@@ -12,7 +12,10 @@ Covered so far:
 * pairwise ``rem --frontier`` (two fastas -> GFA), whose residual
   recursion runs on the device as the level kernel of ``index/devloop.py``
   with each repair pass one launch of a CUDA kernel
-  (``csrc/repair_pass.cu``);
+  (``csrc/repair_pass.cu``); a pair the forest declines (and every pair
+  under ``REVEAL_TPU_DEVLOOP_MODE=full``) runs the whole recursion from
+  the root in the same level loop with the flat chain (the single-root
+  loop, ``devloop.rem_device_loop``);
 * multi-genome ``rem --frontier`` (three or more fastas, up to 8 contig
   paths -> GFA), whose whole recursion runs on the device as the level
   loop of ``index/devloop_multi.py`` with the repair rounds' insertion
@@ -27,7 +30,11 @@ Covered so far:
   them);
 * ``refine`` (GFA -> GFA with realigned bubbles), whose pair posteriors
   (stage 1 of the consistency MSA) run on the device with the pair-HMM
-  forward and backward DP as CUDA kernels (``csrc/pairhmm_dp.cu``).
+  forward and backward DP as CUDA kernels (``csrc/pairhmm_dp.cu``), and
+  with them the MEA distances and the consistency transform of every
+  bubble under the chain's size cap; ``--logadd-compat``, ``--method``
+  (external aligners, ``reveal_rem``) and ``--nproc`` run on the host as
+  in ``reveal_tpu``.
 
 Entry points:
 

@@ -14,26 +14,25 @@ contig paths) take the multi-genome loop on the device given
 (``index/devloop_multi.rem_device_multi`` through
 ``_rem_device_multi_loop``); a pairwise fasta input of one sequence a
 sample, trimmed, at an integral ``--wpen`` and ``minlength >= 1`` takes
-the native host prefix ``rem2_defer_native`` for the big segments and the
-deferred forest on the device (``index/devloop.rem_device_forest``).
-Every other input (graph inputs, multi-contig pairs, ``--notrim``,
-seeding, size gates, non-default picking) and every input the multi loop
-declines (a kernel abort code such as ``ABORT_MAXMUMS``, a segment with
-more than ``maxmums`` candidates; more than 8 paths; capacity retries
-that run out) runs the per-level frontier on the same device
-(``_align_loop_frontier`` over ``index/devfrontier.DeviceFrontier``), as
-the reference routes it; a decline is logged and recorded in
-``LAST_STATS["fallback"]`` of ``devloop_multi`` and ``devfrontier``.
-``align_genomes_host`` runs the serial host engine alone; it is the
-reference the device paths are held to.
-
-When the pairwise forest declines an input (a kernel abort code such as
-``ABORT_DUP_REF``, which needs the host's dict-aliasing; the level cap; a
-text of 2^30 bytes or more; a host prefix that cannot defer), a run on a
-CUDA device raises, naming ROADMAP item 7, which decides where such inputs
-go; on the CPU device it falls back to the serial host engine, logged and
-recorded in ``devloop.LAST_STATS["fallback"]``.  Inputs the port does not
-cover raise ``NotImplementedError``.
+``_rem_device_loop``: the native host prefix ``rem2_defer_native`` for
+the big segments and the deferred forest on the device
+(``index/devloop.rem_device_forest``), and for an input they decline (a
+host prefix that cannot defer; a kernel abort code such as
+``ABORT_DUP_REF``, which needs the host's dict-aliasing) the single-root
+loop, the whole recursion on the device (``index/devloop.rem_device_loop``;
+``REVEAL_TPU_DEVLOOP_MODE=full`` runs it alone).  Every other input
+(graph inputs, multi-contig pairs, ``--notrim``, seeding, size gates,
+non-default picking) and every input the loops decline (a kernel abort
+code such as ``ABORT_MAXMUMS`` or ``ABORT_CHAIN_ROUNDS``; more than 8
+paths; capacity retries that run out; a text of 2^30 bytes or more) runs
+the per-level frontier on the same device (``_align_loop_frontier`` over
+``index/devfrontier.DeviceFrontier``), as the reference routes it; a
+decline is logged and recorded in ``LAST_STATS["fallback"]`` of
+``devloop``, ``devloop_multi`` and ``devfrontier``.  No route falls back
+to the serial host engine or to the CPU.  ``align_genomes_host`` and
+``align_seqs_host`` run the serial host engine alone: the reference the
+device paths are held to, and ``refine --method reveal_rem``'s aligner.
+Inputs the port does not cover raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -655,22 +654,6 @@ def read_fasta_into(
         root_nodes.add(iv)
 
 
-def _declined(G, t, root, cfg, T, SAi, t_snap, sai_snap, device, why):
-    """The forest declined this input: restore the text and inverse SA;
-    raise on a CUDA device, run the serial host engine on the CPU."""
-    T[:] = t_snap
-    SAi[:] = sai_snap
-    devloop.LAST_STATS["fallback"] = why
-    if device.type != "cpu":
-        raise RuntimeError(
-            "the device forest declined this input (%s) on %s; such "
-            "inputs are not covered by reveal_tpu_torch yet (ROADMAP "
-            "queue 1 item 7); run reveal_tpu for it" % (why, device)
-        )
-    log.warning("device forest declined (%s): host engine fallback", why)
-    return _align_loop(G, t, root, cfg)
-
-
 def _rem_device_hybrid(
     G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: PickerConfig,
     device,
@@ -682,7 +665,9 @@ def _rem_device_hybrid(
     the residual forest then runs on ``device``, and its subtrees are
     spliced back at their placeholders, so the replayed anchor stream
     (and the GFA) is byte-identical to the serial engine's.  Returns
-    the anchor count."""
+    the anchor count, or None when the prefix cannot defer or the forest
+    declines (the text and inverse SA restored, the reason in
+    ``devloop.LAST_STATS["fallback"]``)."""
     from ..native import get_lib, rem2_defer_native
 
     if get_lib() is None:
@@ -706,10 +691,12 @@ def _rem_device_hybrid(
     )
     t_host = time.perf_counter() - t0
     if res is None:
+        T[:] = t_snap
+        SAi[:] = sai_snap
         devloop.LAST_STATS.clear()
-        devloop.LAST_STATS.update(host_prefix_seconds=t_host)
-        return _declined(G, t, root, cfg, T, SAi, t_snap, sai_snap, device,
-                         "host prefix pick deferred")
+        devloop.LAST_STATS.update(host_prefix_seconds=t_host,
+                                  fallback="host prefix pick deferred")
+        return None
     anchors, defers = res
     t0 = time.perf_counter()
     dres = devloop.rem_device_forest(
@@ -723,11 +710,11 @@ def _rem_device_hybrid(
         fallback=None,
     )
     if dres is None:
-        code = devloop.LAST_STATS.get("abort")
-        why = ("kernel abort code %d" % code if code
-               else "text of %d bytes, at or above 2^30" % len(T))
-        return _declined(G, t, root, cfg, T, SAi, t_snap, sai_snap, device,
-                         why)
+        T[:] = t_snap
+        SAi[:] = sai_snap
+        devloop.LAST_STATS["fallback"] = _decline_reason(devloop.LAST_STATS,
+                                                         len(T))
+        return None
     subtrees, T_out, levels = dres
     T[: len(T_out)] = T_out  # device lowercase additions
     parts = []
@@ -756,6 +743,83 @@ def _abort_name(code):
     return names[0] if names else "unknown"
 
 
+def _decline_reason(stats, n):
+    """Why a device loop returned None, from its ``LAST_STATS``."""
+    if stats.get("abort"):
+        return "kernel abort code %d (%s)" % (stats["abort"],
+                                              _abort_name(stats["abort"]))
+    return "text of %d bytes, at or above 2^30" % n
+
+
+def _rem_device_loop(
+    G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: PickerConfig,
+    device,
+):
+    """Whole-recursion DEVICE fast path (index/devloop.py): the complete
+    pairwise recursion — enumerate, trim+chain+largest pick, split,
+    lowercase, boundary repair — runs on ``device``; the logged anchors
+    are replayed through the exact graph surgery in serial LIFO pop
+    order, so the GFA is byte-identical to the per-step engine's.
+    Returns the anchor count, or None when the input is not eligible or
+    every route declined it (the caller runs the per-level frontier).
+
+    ``REVEAL_TPU_DEVLOOP_MODE`` is ``hybrid`` (the default: the host
+    prefix and device forest first, the single-root loop for what they
+    decline) or ``full`` (the single-root loop alone).  A ``--notrim``
+    input is not taken: the loop always trims (the port's frontier
+    honours it).  ``devloop.LAST_STATS["fallback"]`` names every route
+    that declined, ``loop_seconds`` the single-root loop's time."""
+    devloop.LAST_STATS.clear()
+    if not _pairwise_fast_eligible(G, root, cfg):
+        return None
+    if not cfg.trim:
+        return None
+    if not float(cfg.wpen).is_integer():
+        return None  # device chain arithmetic is int32-exact
+    if cfg.minlength < 1:
+        return None  # p-value stop needs the host picker
+    declined = []
+    mode = os.environ.get("REVEAL_TPU_DEVLOOP_MODE", "hybrid")
+    if mode == "hybrid":
+        steps = _rem_device_hybrid(G, t, root, cfg, device)
+        if steps is not None:
+            return steps
+        declined.append("forest: " + devloop.LAST_STATS["fallback"])
+        log.info("device forest declined (%s): single-root loop on %s",
+                 declined[-1], device)
+
+    main = root.main
+    t0 = time.perf_counter()
+    res = devloop.rem_device_loop(
+        main.T,
+        root.SA,
+        root.LCP,
+        int(main.nsep[0]),
+        cfg.minlength,
+        cfg.maxmums,
+        int(cfg.wscore),
+        int(cfg.wpen),
+        device=device,
+    )
+    st = devloop.LAST_STATS
+    st["loop_seconds"] = time.perf_counter() - t0
+    if res is None:
+        declined.append("single-root loop: "
+                        + _decline_reason(st, len(main.T)))
+        st["fallback"] = "; ".join(declined)
+        return None
+    st["fallback"] = "; ".join(declined) or None
+    anchors, T_out, levels = res
+    main.T[:] = T_out  # device lowercased text -> host mirror
+    _rem2_replay(G, anchors)
+    log.debug(
+        "device loop: %d anchors in %d levels, graph replayed",
+        len(anchors),
+        levels,
+    )
+    return len(anchors)
+
+
 def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
                cfg: PickerConfig, device):
     """Three or more samples: the whole recursion on ``device`` through
@@ -772,13 +836,10 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
         why = ("not eligible for the multi loop (more than 8 contig paths, "
                "graph input, non-default picking, seeding, size or depth "
                "gates)")
-    elif st.get("abort"):
-        why = "kernel abort code %d (%s)" % (st["abort"],
-                                             _abort_name(st["abort"]))
     elif st.get("pop_order_mismatch"):
         why = "anchor pop order does not cover the log"
     else:
-        why = "text of %d bytes, at or above 2^30" % len(root.main.T)
+        why = _decline_reason(st, len(root.main.T))
     st["fallback"] = why
     log.info("multi loop declined (%s): per-level frontier on %s", why,
              device)
@@ -787,17 +848,23 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
 
 def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
                     cfg: PickerConfig, device):
-    """The routes of ``_align_loop_frontier`` (reference rem.py:870; no
-    mesh): three or more samples take the multi-genome loop, a pairwise
-    fasta input that the forest takes (trimmed, an integral ``--wpen``,
-    ``minlength >= 1``) the host prefix and device forest, every other
-    input the per-level frontier."""
+    """The routes of ``_align_loop_frontier`` (reference rem.py:895-903;
+    no mesh), all on ``device``: three or more samples take the
+    multi-genome loop; a pairwise fasta input of one sequence a sample
+    (trimmed, an integral ``--wpen``, ``minlength >= 1``) the host prefix
+    and device forest, what they decline the single-root loop
+    (``_rem_device_loop``); every other input, and every decline of the
+    loops, the per-level frontier."""
     if root.main.nsamples > 2:
         return _rem_multi(G, t, root, cfg, device)
-    if (cfg.trim and _pairwise_fast_eligible(G, root, cfg)
-            and float(cfg.wpen).is_integer() and cfg.minlength >= 1):
-        return _rem_device_hybrid(G, t, root, cfg, device)
-    return _align_loop_frontier(G, t, root, cfg, device)
+    steps = _rem_device_loop(G, t, root, cfg, device)
+    if steps is not None:
+        return steps
+    why = devloop.LAST_STATS.get("fallback")
+    if why:
+        log.info("device loops declined (%s): per-level frontier on %s",
+                 why, device)
+    return _align_loop_frontier(G, t, root, cfg, device, declined=why)
 
 
 def _align_loop_frontier(
@@ -816,7 +883,7 @@ def _align_loop_frontier(
     Per-segment decisions are independent (each segment owns disjoint
     text and graph regions), so the result is semantically identical to
     the LIFO loop; only GFA node numbering may differ.  ``declined``: why
-    the multi loop did not take this input, recorded as
+    the device loops did not take this input, recorded as
     ``devfrontier.LAST_STATS["fallback"]``."""
     import numpy as _np
 
@@ -1310,32 +1377,9 @@ def _rem_device_multi_loop(
     return len(anchors)
 
 
-def align_seqs(
-    aobjs: List[Tuple[str, str]],
-    minlength: int = 20,
-    minn: int = 2,
-    seedsize: int = 0,
-    maxmums: int = 10000,
-    wpen: float = 1,
-    wscore: float = 1,
-    pcutoff: float = 1e-8,
-    gcmodel: str = "sumofpairs",
-    maxsize: Optional[int] = None,
-    trim: bool = True,
-    backend: str = "auto",
-    device="cuda",
-):
-    """In-memory multi-alignment of (name, seq) tuples -> (G, idx).
-
-    Mirrors rem.align (rem.py:616-712): one shared start/end marker node,
-    prune_nodes afterwards, markers removed before returning.
-
-    The recursion runs on ``device`` as ``align_seqs(..., frontier=True)``
-    of the reference routes it (``_align_frontier``): the multi-genome
-    loop for three or more sequences (its declines on the per-level
-    frontier), the host prefix and device forest for a plain pair, the
-    per-level frontier for the rest.
-    """
+def _seqs_graph(aobjs: List[Tuple[str, str]], backend: str):
+    """The in-memory input of ``align_seqs``: (G, t, idx, startnode,
+    endnode) with one shared start/end marker node (rem.py:616-712)."""
     ts = TextStore()
     t = IntervalIndex()
     G = PanGraph()
@@ -1363,6 +1407,36 @@ def align_seqs(
 
     idx = ESAIndex.construct(ts, backend=backend)
     idx.nodes = root_nodes
+    return G, t, idx, startnode, endnode
+
+
+def align_seqs(
+    aobjs: List[Tuple[str, str]],
+    minlength: int = 20,
+    minn: int = 2,
+    seedsize: int = 0,
+    maxmums: int = 10000,
+    wpen: float = 1,
+    wscore: float = 1,
+    pcutoff: float = 1e-8,
+    gcmodel: str = "sumofpairs",
+    maxsize: Optional[int] = None,
+    trim: bool = True,
+    backend: str = "auto",
+    device="cuda",
+):
+    """In-memory multi-alignment of (name, seq) tuples -> (G, idx).
+
+    Mirrors rem.align (rem.py:616-712): one shared start/end marker node,
+    prune_nodes afterwards, markers removed before returning.
+
+    The recursion runs on ``device`` as ``align_seqs(..., frontier=True)``
+    of the reference routes it (``_align_frontier``): the multi-genome
+    loop for three or more sequences, the host prefix and device forest
+    (then the single-root loop) for a plain pair, the per-level frontier
+    for the rest and for every decline of the loops.
+    """
+    G, t, idx, startnode, endnode = _seqs_graph(aobjs, backend)
 
     cfg = PickerConfig(
         minlength=minlength,
@@ -1380,6 +1454,21 @@ def align_seqs(
 
     prune_nodes(G, T=idx.main.T)
 
+    G.remove_node(startnode)
+    G.remove_node(endnode)
+    return G, idx
+
+
+def align_seqs_host(aobjs: List[Tuple[str, str]], backend: str = "auto",
+                    **cfgkw):
+    """``align_seqs`` by the serial host engine alone (``_align_loop``:
+    the native whole-recursion loop where eligible, else the per-step
+    LIFO loop), as the reference's ``align_seqs(..., frontier=False)``
+    runs it; ``cfgkw`` are ``PickerConfig`` fields.  The aligner of
+    ``refine --method reveal_rem`` on every device."""
+    G, t, idx, startnode, endnode = _seqs_graph(aobjs, backend)
+    _align_loop(G, t, idx, PickerConfig(**cfgkw))
+    prune_nodes(G, T=idx.main.T)
     G.remove_node(startnode)
     G.remove_node(endnode)
     return G, idx

@@ -11,14 +11,16 @@
 ``rem --frontier`` (the flag is accepted and always on) runs the
 recursion on ``--device`` (default ``cuda``; without a card that is an
 error, never a quiet switch to the CPU): two single-sequence fastas
-through the native host prefix and the device forest, three or more (up
-to 8 contig paths) through the multi-genome device loop, and every other
-input (``.gfa`` inputs, multi-contig pairs, ``--notrim``, ``--seedsize``,
+through the native host prefix and the device forest (what they decline,
+and with ``REVEAL_TPU_DEVLOOP_MODE=full`` every such pair, through the
+single-root device loop), three or more (up to 8 contig paths) through
+the multi-genome device loop, and every other input (``.gfa`` inputs, multi-contig pairs, ``--notrim``, ``--seedsize``,
 ``--gcmodel``, ``--maxsize``) through the per-level device frontier.  An
 input the multi loop declines (a segment with more than ``--maxmums``
 candidates, which bacterial-scale inputs have at the default of 10,000,
 more than 8 paths, or a capacity it cannot meet) goes to the per-level
-frontier on the same device, as in ``reveal_tpu``.  The GFA and the
+frontier on the same device, as in ``reveal_tpu``; so does a pair the
+single-root loop declines.  The GFA and the
 identity log line are those of ``python -m reveal_tpu.cli rem``.
 
 ``refine`` (alias ``realign``) realigns bubbles with the pair-HMM
@@ -26,8 +28,12 @@ consistency MSA.  On a card (``--device cuda``) the posteriors, MEA
 distances and consistency transform of every bubble under the chain's
 size cap run on the card and the rest of the MSA on the host; a bubble
 over the cap, and every bubble on ``--device cpu``, has its posteriors
-computed on the device and its consistency transform on the host.  Its
-options and its output are those of ``python -m reveal_tpu.cli
+computed on the device and its consistency transform on the host.
+``--logadd-compat`` computes every posterior on the host with ProbCons'
+LOG_ADD table arithmetic; ``--method`` muscle, probcons, msaprobs or
+pecan runs that aligner from ``$PATH``, ``reveal_rem`` the host anchor
+aligner; ``--nproc N`` runs the per-bubble MSA in N forked processes.
+Its options and its output are those of ``python -m reveal_tpu.cli
 refine``.
 """
 
@@ -184,7 +190,9 @@ def build_parser():
     r = sub.add_parser(
         "rem", help="Align two or more fasta or gfa files into a GFA.",
         description="Two single-sequence fastas: native host prefix, then "
-        "the device forest.  Three or more (up to 8 contig paths): the "
+        "the device forest, and the single-root device loop for what they "
+        "decline (REVEAL_TPU_DEVLOOP_MODE=full: the loop alone).  Three or "
+        "more (up to 8 contig paths): the "
         "multi-genome device loop.  Every other input, and every input the "
         "multi loop declines (a segment of more than --maxmums "
         "candidates: at the default 10,000, past about 100 kbp a genome "
@@ -264,19 +272,22 @@ def build_parser():
         p2.add_argument("--nrefinements", type=int, default=100)
         p2.add_argument(
             "--logadd-compat", dest="logadd_compat", action="store_true",
-            help="ProbCons' float32 LOG_ADD lookup-table arithmetic; not "
-                 "ported, raises.",
+            help="ProbCons' float32 LOG_ADD lookup-table arithmetic for "
+                 "every posterior, pair by pair on the host (slow; for "
+                 "bit-equivalence attempts with ProbCons).",
         )
         p2.add_argument("--uniqueonly", action="store_true")
         p2.add_argument("--nproc", type=int, default=0,
                         help="Worker processes for the per-bubble MSA "
-                             "phase; default serial.")
+                             "phase (forked after the device stages; host "
+                             "work only); default serial.")
         p2.add_argument("--method", default="reveal_probcons",
                         choices=["reveal_probcons", "reveal_rem", "muscle",
                                  "probcons", "msaprobs", "pecan"],
-                        help="Bubble realignment method; only the built-in "
-                             "pair-HMM MSA (reveal_probcons) is ported, "
-                             "the others raise.")
+                        help="Bubble realignment method: the built-in "
+                             "pair-HMM MSA (reveal_probcons, default), the "
+                             "host anchor aligner (reveal_rem), or an "
+                             "external aligner from $PATH.")
         p2.add_argument("--params", dest="parameters", default="",
                         help="Extra parameters for external MSA tools.")
         p2.add_argument("--checkpoint", default=None, metavar="FILE",

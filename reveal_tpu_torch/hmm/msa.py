@@ -45,7 +45,10 @@ consistency products (``REVEAL_TPU_CONS_BF16``) is not ported.  The
 reference's small-workload routes to the native host pair-HMM are not
 ported either.  ``batch_posteriors_cut_native`` is the float64-exact
 native host route for stage 1; it is a reference to hold the device
-against, chosen by the caller by name, never a fallback.  Alignment
+against, chosen by the caller by name, never a fallback.
+``set_logadd_compat`` (``refine --logadd-compat``) sends every posterior
+through the float32 LOG_ADD table twin of ``hmm/compat.py`` on the host,
+on every device, as the reference does.  Alignment
 strings use '-' for gaps like the reference.
 """
 
@@ -58,8 +61,8 @@ import numpy as np
 
 import torch
 
-from .. import _not_covered
 from ..core.torchconfig import resolve_device
+from .compat import posterior_compat
 from .mea_score import mea_score
 from .pairhmm import POSTERIOR_CUTOFF, compact_rows, fetch_posteriors_compact
 from .pairhmm_dp import (
@@ -78,16 +81,30 @@ log = logging.getLogger(__name__)
 DEFAULT_DEVICE = "cuda"
 
 
+_logadd_compat = False
+
+
 def set_logadd_compat(flag: bool) -> None:
-    """The reference's float32 LOG_ADD lookup-table mode (hmm/compat.py)
-    is not ported."""
-    if flag:
-        raise _not_covered("--logadd-compat (hmm/compat.py)", "3")
+    """Route all posterior computation through the float32 LOG_ADD
+    lookup-table arithmetic (ScoreType.h:185-262 semantics, see
+    hmm/compat.py).  Slow scalar mode for reference bit-equivalence
+    attempts; enabled by ``refine --logadd-compat``."""
+    global _logadd_compat
+    _logadd_compat = bool(flag)
 
 
 def batch_posteriors(pairs, slice_output: bool = True, device=None):
     """Dense posteriors [(posterior, total), ...] of string pairs on
-    ``device`` (default ``DEFAULT_DEVICE``), through the DP wrappers."""
+    ``device`` (default ``DEFAULT_DEVICE``), through the DP wrappers; in
+    compat mode (``set_logadd_compat``) from the LOG_ADD table twin, pair
+    by pair on the host, on every device
+    (reveal_tpu/hmm/pairhmm.py:733-740)."""
+    if _logadd_compat:
+        out = []
+        for s1, s2 in pairs:
+            p, tot = posterior_compat(s1, s2)
+            out.append((p.astype(np.float32), tot))
+        return out
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
     return batch_posteriors_dp(pairs, dev, slice_output=slice_output)
 
@@ -178,8 +195,16 @@ def batch_posteriors_cut(pairs, device="cuda"):
     a ``SparsePost`` (compact top-K rows; ``.dense()`` reproduces
     ``_sparsify(p_dense)`` exactly) and score equals the host
     ``_mea_dp_fast(p_dense)[1]``.  The same code runs on a CUDA device
-    (the DP kernels) and on the CPU (their plain versions)."""
+    (the DP kernels) and on the CPU (their plain versions).  In compat
+    mode (``set_logadd_compat``) every pair takes the host route on every
+    device: dense posteriors of the LOG_ADD table twin, ``_sparsify`` and
+    ``_mea_dp_fast`` (reveal_tpu/hmm/msa.py:199-203)."""
     dev = resolve_device(device)
+    if _logadd_compat:
+        res = batch_posteriors(pairs)
+        return [
+            (_sparsify(p), tot, _mea_dp_fast(p)[1]) for p, tot in res
+        ]
     out = [None] * len(pairs)
     for _L1p, _L2p, idxs, x, y, lx, ly in batches(pairs, dev):
         p, tot = posterior_batch(x, y, lx, ly)

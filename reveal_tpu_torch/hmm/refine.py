@@ -26,8 +26,15 @@ each bubble's MSA, consistency transform included, runs on the host.  The
 reference's small-workload routes to the native host code and its full
 two-phase recompute when a bubble is over the cap are not part of the
 port, and a kernel, build or launch failure raises: only the size cap
-sends a bubble to the two-phase route.  External aligners and
-``reveal_rem`` (``--method``) are not ported and raise.
+sends a bubble to the two-phase route.  In compat mode
+(``msa.set_logadd_compat``, ``refine --logadd-compat``) every bubble takes
+the two-phase route with its posteriors from the LOG_ADD table twin on
+the host, never the chain.  ``--method`` muscle, probcons, msaprobs or
+pecan runs that aligner from ``$PATH`` (``_external_msa``) and
+``reveal_rem`` the serial host anchor aligner on each bubble's alleles;
+neither has a device stage, on any device, as in the reference.
+``--nproc`` forks a process pool after the device stages: its workers
+get host data only (numpy arrays and the host MSA), never a card tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .. import _not_covered
+from . import msa as _msa
 from .msa import probcons_align
 from .pairhmm_dp import bucket_key
 from ..graph.bubbles import Bubble, bubbles
@@ -49,7 +56,8 @@ from ..graph.pangraph import PanGraph
 log = logging.getLogger(__name__)
 
 # stats of the most recent refine_all call: bubbles, pairs, posterior
-# cells, the route, the bubbles the chain took and their (N, Lq) shapes,
+# cells, the route, the method, compat mode, the processes of the MSA
+# pool (0: serial), the bubbles the chain took and their (N, Lq) shapes,
 # its chunks and DP batches, the two-phase pairs per padded DP shape, a
 # digest of every refined bubble's subgraph in splice order, and the
 # seconds of its stages
@@ -80,6 +88,63 @@ def _mp_run_job(i):
     return run(jobs[i])
 
 
+def _external_msa(aobjs, method: str, parameters: str = ""):
+    """Run an external multiple-sequence aligner from $PATH and return
+    (aligned_rows_in_path2id_order, confidence) — the same tool command
+    lines as the reference (refine.msa2graph, refine.py:586-640)."""
+    import os
+    import subprocess
+    import uuid as uuidmod
+
+    from ..core.io_fasta import fasta_writer
+
+    uid = uuidmod.uuid4().hex
+    tempfiles = []
+    if method == "muscle":
+        cmd = "muscle -in %s.fasta -quiet" % uid
+        fasta_writer(uid + ".fasta", aobjs)
+        tempfiles.append("%s.fasta" % uid)
+    elif method == "probcons":
+        cmd = "probcons %s.fasta -annot %s.conf %s" % (uid, uid, parameters)
+        fasta_writer(uid + ".fasta", aobjs)
+        tempfiles += ["%s.fasta" % uid, "%s.conf" % uid]
+    elif method == "msaprobs":
+        cmd = "msaprobs %s.fasta -annot %s.conf %s" % (uid, uid, parameters)
+        fasta_writer(uid + ".fasta", aobjs)
+        tempfiles += ["%s.fasta" % uid, "%s.conf" % uid]
+    elif method == "pecan":
+        cmd = "pecan -G %s.fasta -F %s.*.fasta -l -p %s.conf %s && cat %s.fasta" % (
+            uid, uid, uid, parameters, uid,
+        )
+        for i, (name, seq) in enumerate(aobjs):
+            fasta_writer("%s.%d.fasta" % (uid, i), [(name, seq)])
+            tempfiles.append("%s.%d.fasta" % (uid, i))
+        tempfiles += ["%s.fasta" % uid, "%s.conf" % uid]
+    else:
+        raise ValueError("unknown msa method: %s" % method)
+
+    try:
+        out = subprocess.check_output(
+            [cmd], shell=True, stderr=subprocess.DEVNULL, text=True
+        )
+        name2seq = {}
+        for rec in out.split(">")[1:]:
+            x = rec.find("\n")
+            name2seq[rec[:x]] = rec[x + 1 :].replace("\n", "")
+        ncols = len(next(iter(name2seq.values())))
+        confidence = [100.0] * ncols
+        if os.path.exists("%s.conf" % uid):
+            with open("%s.conf" % uid) as annot:
+                for i, line in enumerate(annot):
+                    c = float(line.strip())
+                    confidence[i] = c * 100 if c < 1 else c
+        return name2seq, confidence
+    finally:
+        for f in tempfiles:
+            if os.path.exists(f):
+                os.remove(f)
+
+
 def msa_to_graph(
     aobjs,
     idoffset: int = 0,
@@ -94,13 +159,9 @@ def msa_to_graph(
     method: str = "reveal_probcons",
     parameters: str = "",
 ) -> Optional[PanGraph]:
-    """MSA + column-graph construction (refine.msa2graph) with the
-    built-in pair-HMM consistency MSA (reveal_probcons)."""
-    if method != "reveal_probcons":
-        raise _not_covered(
-            "--method %s (external aligners, reveal_rem)" % method, "3"
-        )
-    del parameters  # external aligners only
+    """MSA + column-graph construction (refine.msa2graph): the built-in
+    pair-HMM consistency MSA (reveal_probcons), or an external aligner
+    from $PATH (muscle/probcons/msaprobs/pecan, refine.py:586-640)."""
     nn = idoffset
     ng = PanGraph()
     for name, seq in aobjs:
@@ -110,19 +171,31 @@ def msa_to_graph(
         ng.graph["id2end"][sid] = len(seq)
         ng.graph["paths"].append(name)
 
-    aln, confidence = probcons_align(
-        aobjs,
-        consistency=constrans,
-        refinement=nrefinements,
-        consgap=consgap,
-        precomputed=precomputed,
-        precomputed_scores=precomputed_scores,
-        precomputed_mats=precomputed_mats,
-        precomputed_dist=precomputed_dist,
-    )
-    seqs = [""] * len(aobjs)
-    for name, seq in aln:
-        seqs[ng.graph["path2id"][name]] = seq
+    if method in ("muscle", "probcons", "msaprobs", "pecan"):
+        try:
+            name2seq, confidence = _external_msa(
+                aobjs, method, parameters
+            )
+        except Exception as e:
+            log.error("MSA with %s failed: %s", method, e)
+            return None
+        seqs = [""] * len(aobjs)
+        for name, seq in name2seq.items():
+            seqs[ng.graph["path2id"][name]] = seq
+    else:
+        aln, confidence = probcons_align(
+            aobjs,
+            consistency=constrans,
+            refinement=nrefinements,
+            consgap=consgap,
+            precomputed=precomputed,
+            precomputed_scores=precomputed_scores,
+            precomputed_mats=precomputed_mats,
+            precomputed_dist=precomputed_dist,
+        )
+        seqs = [""] * len(aobjs)
+        for name, seq in aln:
+            seqs[ng.graph["path2id"][name]] = seq
 
     build_column_graph(ng, seqs, confidence, minconf=minconf, idoffset=nn)
     return ng
@@ -354,7 +427,11 @@ def refine_bubble(
     wscore: float = 1,
     **_,
 ):
-    """refine.py:149-273 with the built-in MSA (reveal_probcons)."""
+    """refine.py:149-273: reveal_probcons / external MSA methods, or
+    reveal_rem (re-run the anchor aligner on the alleles,
+    refine.py:219-231).  reveal_rem runs the serial host engine
+    (``align.rem.align_seqs_host``) on every device, as the reference
+    runs it."""
     if aobjs is None:
         aobjs = prepare_bubble_alleles(
             sg, bubble, paths, uniqueonly=uniqueonly
@@ -362,19 +439,36 @@ def refine_bubble(
     if aobjs is None:
         return None
 
-    ng = msa_to_graph(
-        aobjs,
-        minconf=minconf,
-        constrans=constrans,
-        consgap=consgap,
-        nrefinements=nrefinements,
-        precomputed=precomputed,
-        precomputed_scores=precomputed_scores,
-        precomputed_mats=precomputed_mats,
-        precomputed_dist=precomputed_dist,
-        method=method,
-        parameters=parameters,
-    )
+    if method == "reveal_rem":
+        from ..align.rem import align_seqs_host
+        from ..core.io_gfa import seq2node
+
+        try:
+            ng, idx = align_seqs_host(
+                aobjs,
+                minlength=minlength,
+                wpen=wpen,
+                wscore=wscore,
+                backend="np",
+            )
+        except Exception as e:
+            log.error("reveal_rem realign failed: %s", e)
+            return None
+        seq2node(ng, idx.main.T)
+    else:
+        ng = msa_to_graph(
+            aobjs,
+            minconf=minconf,
+            constrans=constrans,
+            consgap=consgap,
+            nrefinements=nrefinements,
+            precomputed=precomputed,
+            precomputed_scores=precomputed_scores,
+            precomputed_mats=precomputed_mats,
+            precomputed_dist=precomputed_dist,
+            method=method,
+            parameters=parameters,
+        )
     if ng is None:
         return None
 
@@ -555,7 +649,10 @@ def refine_all(
     on a CUDA device and the two-phase route elsewhere, as the reference
     takes its chain on an accelerator only.  ``stage1="native"`` computes
     stage 1 of the two-phase route with the native float64 host pair-HMM
-    instead, as a reference for the device.
+    instead, as a reference for the device.  In compat mode the default
+    is the two-phase route on every device, and the chain is refused.
+    ``method`` (a keyword) other than reveal_probcons skips stages 1 and
+    2: the external aligner or ``reveal_rem`` realigns each bubble.
 
     ``checkpoint`` logs every bubble's result as it completes
     (hmm/refinelog.py); a resumed run skips the logged bubbles' device
@@ -664,19 +761,18 @@ def refine_all(
     )
 
     method = kwargs.get("method", "reveal_probcons")
-    if method != "reveal_probcons":
-        raise _not_covered(
-            "--method %s (external aligners, reveal_rem)" % method, "3"
-        )
     if stage1 not in ("device", "native"):
         raise ValueError("stage1 must be 'device' or 'native'")
     if route is None:
-        route = ("chain" if stage1 == "device"
+        route = ("chain" if stage1 == "device" and not _msa._logadd_compat
                  and torch.device(device).type == "cuda" else "two-phase")
     if route not in ("chain", "two-phase") or (
-            route == "chain" and stage1 != "device"):
-        raise ValueError("route must be 'chain' (with stage1='device') or "
-                         "'two-phase'")
+            route == "chain" and (stage1 != "device"
+                                  or _msa._logadd_compat)):
+        raise ValueError("route must be 'chain' (with stage1='device', not "
+                         "in compat mode) or 'two-phase'")
+    # stages 1 and 2 belong to the built-in MSA only
+    probcons = method == "reveal_probcons"
     t_extract = time.time() - t_begin
 
     # phase 1 (chain): posterior -> distance -> consistency on the device
@@ -688,7 +784,7 @@ def refine_all(
     dist_for = [None] * len(work)
     chain = {}
     t0 = time.time()
-    if all_pairs and route == "chain":
+    if all_pairs and probcons and route == "chain":
         stage12 = batch_stage12_device(
             [[sq for _n, sq in w[4]] for w in work],
             consistency=kwargs.get("constrans", 2),
@@ -711,7 +807,8 @@ def refine_all(
     # few large batches on the device: cutoff survivors + MEA scores come
     # back (msa.batch_posteriors_cut; SparseMatrix.h:14,54 semantics);
     # probcons_align runs their stage 2 on the host
-    rem_idx = [i for i in range(len(work)) if mats_for[i] is None]
+    rem_idx = [i for i in range(len(work))
+               if probcons and mats_for[i] is None]
     rem_pairs = []
     for i in rem_idx:
         s, e = pair_slices[i]
@@ -788,6 +885,7 @@ def refine_all(
         if pm is not None or posteriors
     ]
     results = [None] * len(jobs)
+    pool_processes = 0
 
     def _record(i, res):
         results[i] = res
@@ -835,6 +933,7 @@ def refine_all(
                         ):
                             _record(i, res)
                     ran = True
+                    pool_processes = nproc
                 except Exception as e:
                     log.warning(
                         "refine process pool failed (%s); serial", e
@@ -864,7 +963,10 @@ def refine_all(
         pairs=len(all_pairs),
         cells=sum((len(a) + 1) * (len(b) + 1) for a, b in all_pairs),
         route=route,
-        chain_bubbles=len(work) - len(rem_idx),
+        method=method,
+        compat=_msa._logadd_compat,
+        pool_processes=pool_processes,
+        chain_bubbles=sum(m is not None for m in mats_for),
         chain_shapes=chain.get("shapes", {}),
         chain_batches=chain.get("batches", 0),
         chain_dp_batches=chain.get("dp_batches", 0),

@@ -24,6 +24,7 @@ from __future__ import annotations
 import logging
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ ABORT_REPAIR_WINDOW = 9     # a repair insertion point escaped the window
 ABORT_SEG_WIDTH = 10        # a segment exceeded the dense chain width CW
 
 _LMAX = 512
+_RMAX = 384     # chain wavefront rounds per level
 _WREP = 4096    # repair window lookback (insertion point must be inside)
 _WRV = 256      # vectorized repair resolve window: the insertion-point
                 # search looks back this many slots per candidate (p90
@@ -158,6 +160,15 @@ def seg_min_scan(values, reset):
     def combine(x, y):
         (m1, f1), (m2, f2) = x, y
         return torch.where(f2 > 0, m2, torch.minimum(m1, m2)), f1 | f2
+
+    return associative_scan(combine, (values, reset.to(values.dtype)))[0]
+
+
+def seg_max_scan(values, reset):
+    """Running maximum along dim 0 restarted where ``reset`` is set."""
+    def combine(x, y):
+        (m1, f1), (m2, f2) = x, y
+        return torch.where(f2 > 0, m2, torch.maximum(m1, m2)), f1 | f2
 
     return associative_scan(combine, (values, reset.to(values.dtype)))[0]
 
@@ -545,6 +556,234 @@ def chain_dense(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp, CW):
     s_l = torch.where(picked, gsel(dL, bsc)[:, 0], 0)
     s_ma = torch.where(picked, gsel(dA, bsc)[:, 0], 0)
     s_mb = torch.where(picked, gsel(dB, bsc)[:, 0], 0)
+    return picked, s_l, s_ma, s_mb, abort, rounds
+
+
+# ----------------------------------------------------------------------
+# chain + pick, flat M-row formulation (devloop.py:390-705)
+# ----------------------------------------------------------------------
+def _comb_aff(x, y):
+    """The wavefront's value scan in phi space: maps f(m) = max(m + p,
+    q), composed left to right, a set ``r`` starting a run afresh."""
+    (p1, q1, r1), (p2, q2, r2) = x, y
+    keep = r2 == 0
+    return (
+        torch.where(keep, (p1 + p2).clamp(max=A30), p2),
+        torch.where(keep, torch.maximum(q1 + p2, q2), q2),
+        r1 | r2,
+    )
+
+
+def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp):
+    """Sparse chaining DP (schemes.py:20-104) and the ``largest`` pick of
+    every live segment at once, over one flat list of M = K + SMAX rows
+    (the candidates and one right pseudo-row a live segment, sorted by
+    (segment, a)): the single-root path, where a segment may hold
+    thousands of candidates.  Returns (picked, s_l, s_ma, s_mb, abort,
+    rounds) as ``chain_dense`` does, with rounds = the wavefront rounds of
+    the score pass; past ``_RMAX`` rounds the level aborts with
+    ``ABORT_CHAIN_ROUNDS``.
+
+    Scores are computed values first by wavefront rounds: a row commits
+    once no compatible predecessor outside its run is pending, and a run
+    (consecutively chainable rows) commits its prefix through one scan of
+    affine maps.  The JAX kernel's candidate x candidate passes take
+    chunks of CH rows against all M columns; here a chunk meets only the
+    rows of its own segments (every pass masks other segments and dead
+    rows out, and rows are sorted by segment), read once a level with
+    one host read, and its masks and gap penalties are built once a level
+    instead of once a round.  Results are the JAX kernel's bit for bit.
+    One host read a round tests the loop."""
+    K = cseg.shape[0]
+    SMAX = seg_tab.shape[0]
+    M = K + SMAX
+    CH = 2048 if M % 2048 == 0 else 1024
+    dev = cseg.device
+    iar_m = arange32(M, dev)
+    gseg = torch.cat([cseg, torch.where(seg_live, arange32(SMAX, dev), BIG)])
+    gl = torch.cat([cl, torch.zeros(SMAX, dtype=I32, device=dev)])
+    ga = torch.cat([caa, torch.where(seg_live, seg_tab[:, 1], 0)])
+    gb = torch.cat([cbb, torch.where(seg_live, seg_tab[:, 3], 0)])
+    gpseudo = torch.cat([torch.zeros(K, dtype=I32, device=dev),
+                         torch.ones(SMAX, dtype=I32, device=dev)])
+    gseg, gl, ga, gb, gpseudo = sort_by(
+        (gseg, torch.where(gseg < BIG, ga, BIG), iar_m),
+        (gseg, gl, ga, gb, gpseudo),
+    )
+    galive = gseg < BIG
+    cand = galive & (gpseudo == 0)
+    # duplicate ref starts within a segment: the host resolves them
+    # through its dict-aliasing path; abort instead
+    dup = (
+        (gseg[1:] == gseg[:-1]) & (ga[1:] == ga[:-1]) & (gseg[1:] < BIG)
+        & (gpseudo[1:] == 0) & (gpseudo[:-1] == 0)
+    )
+    abort = torch.where(dup.any(), ABORT_DUP_REF, abort)
+    gea = ga + gl
+    geb = gb + gl
+    gu = gea - geb
+    gv = ga - gb
+    gsc = gseg.clamp(0, SMAX - 1)
+    # left pseudo in text coordinates (gap costs are shift-invariant)
+    gla = take(seg_tab[:, 0], gsc) - 1
+    glb = take(seg_tab[:, 2], gsc) - 1
+    gmul = ws * gl
+    gwl = torch.where(galive, gmul - wp * torch.abs((ga - gla) - (gb - glb)),
+                      NEG)
+
+    # runs: maximal blocks of consecutively chainable rows where every
+    # in-run predecessor pair is exactly branch 1 of the |gap| split
+    gfirst = (gseg != shift1(gseg, -9)) & galive
+    chain_ok = (
+        (shift1(gea, BIG) <= ga) & (shift1(geb, BIG) <= gb)
+        & (shift1(gu, BIG) <= gv)
+    )
+    brk0 = (gfirst | ~chain_ok) & galive
+    pmu = seg_max_scan(gu, brk0)
+    brk = (brk0 | (shift1(pmu, BIG) > gv)) & galive
+    runid = torch.where(galive, cumsum32(brk) - 1, -1)
+
+    # the row chunks of the live rows (dead rows sort last), each with
+    # the first row of its first segment and the end of its last one
+    nch = -(-M // CH)
+    starts = arange32(nch, dev) * CH
+    lo = torch.searchsorted(gseg, take(gseg, starts))
+    hi = torch.searchsorted(gseg, take(gseg, (starts + (CH - 1)).clamp(
+        max=M - 1)), right=True)
+    bounds = torch.cat([galive.sum(dtype=torch.int64)[None], lo, hi])
+    bounds = bounds.tolist()
+    nlive = bounds[0]
+    chunks = [
+        (r0, min(r0 + CH, nlive), bounds[1 + c], min(bounds[1 + nch + c],
+                                                     nlive))
+        for c, r0 in enumerate(range(0, nlive, CH))
+    ]
+    # per chunk: compatible predecessors (same segment, ends dominated,
+    # earlier row), those outside the row's run, and the gap penalty
+    pairs = []
+    for r0, r1, c0, _c1 in chunks:
+        i, j = slice(r0, r1), slice(c0, r1)
+        earlier = iar_m[None, j] < iar_m[i, None]
+        compat = (
+            (gseg[None, j] == gseg[i, None]) & galive[None, j]
+            & (gea[None, j] <= ga[i, None]) & (geb[None, j] <= gb[i, None])
+            & earlier
+        )
+        inrun = (runid[None, j] == runid[i, None]) & earlier
+        pen = wp * torch.abs(gv[i, None] - gu[None, j])
+        pairs.append((compat, compat & ~inrun, pen))
+
+    # wavefront rounds: scores only
+    psi = gmul - wp * (gv - gu)
+    reset = (brk | (iar_m == 0)).to(I32)
+    score = torch.zeros(M, dtype=I32, device=dev)
+    done = ~galive
+    rounds = 0
+    rabort = 0
+    more = nlive > 0   # a live row is not done
+    while more and rounds < _RMAX and rabort == 0:
+        # per row: blocked = a compatible predecessor outside the run is
+        # not done; outv = the best done compatible predecessor's score
+        blocked = torch.zeros(M, dtype=torch.bool, device=dev)
+        outv = torch.full((M,), NEG, dtype=I32, device=dev)
+        for (r0, r1, c0, _c1), (compat, outrun, pen) in zip(chunks, pairs):
+            dj = done[None, c0:r1]
+            blocked[r0:r1] = (outrun & ~dj).any(1)
+            outv[r0:r1] = torch.where(compat & dj, score[None, c0:r1] - pen,
+                                      NEG).amax(1)
+        # commit = per-run prefix of unblocked undone rows
+        okrow = done | (~blocked & galive)
+        commit = galive & ~done & (seg_min_scan(okrow.to(I32), brk) > 0)
+        # exclusive segmented prefix of f(m) = max(m + P, Q): a run start
+        # sees an empty prefix
+        base = torch.maximum(gwl, outv + gmul)
+        P = torch.where(commit, psi.clamp(min=0), 0)
+        Q = torch.where(done & galive, score + wp * gu,
+                        torch.where(commit, base + wp * gu, NEG))
+        _, m_in, _ = associative_scan(_comb_aff, (
+            torch.where(brk, 0, shift1(P, 0)),
+            torch.where(brk, NEG, shift1(Q, NEG)),
+            reset,
+        ))
+        # an empty prefix (m_in = NEG) must not wrap int32 when the row
+        # offset is added
+        sc_new = torch.where(m_in > NEG // 2,
+                             torch.maximum(base, m_in + gmul - wp * gv), base)
+        score = torch.where(commit, sc_new, score)
+        done = done | commit
+        rounds += 1
+        more, progress = torch.stack([(galive & ~done).any(),
+                                      commit.any()]).tolist()
+        if not progress:
+            rabort = ABORT_CHAIN_ROUNDS
+    if rabort or more:
+        abort = torch.where(abort == 0, ABORT_CHAIN_ROUNDS, abort)
+
+    # act: geometric activation step, the least dominating row
+    act = torch.full((M,), BIG, dtype=I32, device=dev)
+    for r0, r1, c0, c1 in chunks:
+        i, j = slice(c0, c1), slice(r0, r1)
+        dom = (
+            (gseg[i, None] == gseg[None, j]) & galive[i, None]
+            & (ga[i, None] >= gea[None, j]) & (gb[i, None] >= geb[None, j])
+        )
+        act[j] = torch.where(dom, iar_m[i, None], BIG).amin(0)
+
+    # links: exact winner reconstruction, lex key (tmpw, score_j,
+    # -act_j, -row_j); the left pseudo wins ties per the reference's
+    # traversal order (schemes.py:64-87)
+    link = torch.full((M,), -2, dtype=I32, device=dev)
+    for (r0, r1, c0, _c1), (compat, _outrun, pen) in zip(chunks, pairs):
+        tw = torch.where(compat, score[None, c0:r1] - pen, NEG)
+        mx = tw.amax(1)
+        t1 = tw == mx[:, None]
+        sc2 = torch.where(t1, score[None, c0:r1], NEG)
+        mx2 = sc2.amax(1)
+        t2 = t1 & (sc2 == mx2[:, None])
+        a3 = torch.where(t2, act[None, c0:r1], BIG)
+        t3 = t2 & (a3 == a3.amin(1)[:, None])
+        brow = torch.argmax(t3.to(torch.uint8), dim=1).to(I32) + c0
+        wl_i = gwl[r0:r1]
+        mxg = mx + gmul[r0:r1]
+        use_left = (mx <= NEG) | (wl_i > mxg) | ((wl_i == mxg) & (mx2 <= 0))
+        link[r0:r1] = torch.where(use_left, -1, brow)
+    del pairs
+
+    # backtrack + largest (schemes.py:298-301): pointer doubling along
+    # the link chains, per row the best (strictly greater wins, nearest
+    # wins ties) candidate l on the path to the left pseudo
+    def seg_max(vals):
+        return torch.full((SMAX,), -1, dtype=I32, device=dev).scatter_reduce_(
+            0, gsc.long(), vals, "amax")
+
+    pseudo_pos = seg_max(torch.where((gpseudo == 1) & galive, iar_m, -1))
+    ptr0 = torch.where(seg_live & (pseudo_pos >= 0),
+                       take(link, pseudo_pos.clamp(0, M - 1)), -1)
+    sentinel = torch.full((1,), M, dtype=I32, device=dev)
+    nxt = torch.cat([torch.where(link >= 0, link, M), sentinel])
+    bl = torch.cat([torch.where(cand, gl, -1), sentinel.new_full((1,), -1)])
+    bs = torch.cat([iar_m, sentinel.new_full((1,), -1)])
+    while bool((nxt[:M] != M).any()):
+        bl2 = take(bl, nxt)
+        bs2 = take(bs, nxt)
+        take_far = bl2 > bl
+        bl = torch.where(take_far, bl2, bl)
+        bs = torch.where(take_far, bs2, bs)
+        nxt = take(nxt, nxt)
+    ptr0c = ptr0.clamp(0, M)
+    blp = torch.where(ptr0 >= 0, take(bl, ptr0c), -1)
+    bs_seg = torch.where((ptr0 >= 0) & (blp > -1), take(bs, ptr0c), -1)
+    # single-candidate segments bypass the chain (picker __call__:
+    # len(relmums) == 1)
+    candcnt = torch.zeros(SMAX, dtype=I32, device=dev).index_add_(
+        0, gsc, cand.to(I32))
+    bs_seg = torch.where(seg_live & (candcnt == 1),
+                         seg_max(torch.where(cand, iar_m, -1)), bs_seg)
+    picked = seg_live & (bs_seg >= 0)
+    bsc = bs_seg.clamp(0, M - 1)
+    s_l = torch.where(picked, take(gl, bsc), 0)
+    s_ma = torch.where(picked, take(ga, bsc), 0)
+    s_mb = torch.where(picked, take(gb, bsc), 0)
     return picked, s_l, s_ma, s_mb, abort, rounds
 
 
@@ -984,20 +1223,24 @@ class Caps:
     SMAX: int   # live segments
     ACAP: int   # anchor log rows
     CCAP: int   # repair candidates per pass
-    CW: int     # dense chain width
+    CW: Optional[int]   # dense chain width; None: the flat chain
 
 
 def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
                ws, wp, caps: Caps):
-    """Run the whole residual recursion of the packed forest.
+    """Run the whole recursion below the ``nseg0`` live segments of
+    ``seg_tab``: the packed forest's, or the single root's.
 
     ``Tu8``: (ntext,) uint8 text; ``SA``/``LCP``/``SEG``: (npad,) int32
     slots; ``seg_tab``: (SMAX, 8) int32 rows a_beg a_end b_beg b_end
-    parent cls ma mb.  Returns (T_u8, anchors, acount, abort, level,
-    steps, repair_stats) with steps = [trim rows, chain column steps,
-    repair steps] (the JAX kernel's ``run``; repair steps are batched
-    rounds on the CPU, launches on the card) and repair_stats the repair
-    counters [applied, longest run, moved slots]."""
+    parent cls ma mb.  A level chains by ``chain_dense`` when ``caps.CW``
+    is a width and by ``chain_flat`` when it is None, as the JAX kernel's
+    ``chain_width`` selects.  Returns (T_u8, anchors, acount, abort,
+    level, steps, repair_stats) with steps = [trim rows, chain steps
+    (column steps or wavefront rounds), repair steps] (the JAX kernel's
+    ``run``; repair steps are batched rounds on the CPU, launches on the
+    card) and repair_stats the repair counters [applied, longest run,
+    moved slots]."""
     dev = SA.device
     T = Tu8.to(I32)
     # BWT column T[SA-1]; SA == 0 wraps to slot 0 (the a_ == 0 guard in
@@ -1020,9 +1263,15 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
         cseg, cl, caa, cbb, na1 = trim_dim(cseg, cl, caa, cbb, 1)
         steps[0] = steps[0] + na0 + na1
         seg_live = sarange < nseg
-        picked, s_l, s_ma, s_mb, abort, rounds = chain_dense(
-            cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp, caps.CW
-        )
+        if caps.CW is None:
+            picked, s_l, s_ma, s_mb, abort, rounds = chain_flat(
+                cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp
+            )
+        else:
+            picked, s_l, s_ma, s_mb, abort, rounds = chain_dense(
+                cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp,
+                caps.CW
+            )
         steps[1] += rounds
         anchors, lslot, npicked, abort = log_anchors(
             anchors, acount, picked, s_ma, s_mb, s_l, seg_tab, abort
@@ -1055,6 +1304,53 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
     steps = [int(steps[0]), steps[1], steps[2]]
     return (T.to(torch.uint8), anchors, int(acount), abort, level, steps,
             rstats.tolist())
+
+
+def _dispatch(T_p, SA_p, LCP_p, SEG_p, seg_rows, nsep0, minlength, maxmums,
+              wscore, wpen, caps: Caps, device, what):
+    """``forest_run`` on ``device`` from the padded host arrays, its live
+    segments the rows ``seg_rows`` of seg_tab, until a dispatch ends on
+    no retryable abort: each retryable abort doubles its capacity (at
+    most five dispatches).  Fills ``LAST_STATS`` with the keys of both
+    loops and returns the last dispatch's (T_u8, anchors, acount, abort,
+    level)."""
+    def dev_tensor(a):
+        return torch.from_numpy(a).to(device)
+
+    dispatches = 0
+    repair_total = 0
+    launches0 = repair.LAUNCHES
+    for _attempt in range(5):
+        if len(seg_rows) > caps.SMAX:
+            caps.SMAX = _next_pow2(len(seg_rows))
+        seg_tab = np.zeros((caps.SMAX, 8), dtype=np.int32)
+        seg_tab[:len(seg_rows)] = seg_rows
+        T_out, anchors, acount, abort, level, steps, rstats = forest_run(
+            dev_tensor(T_p), dev_tensor(SA_p), dev_tensor(LCP_p),
+            dev_tensor(SEG_p), dev_tensor(seg_tab), len(seg_rows),
+            int(nsep0), int(minlength), int(maxmums), int(wscore),
+            int(wpen), caps,
+        )
+        dispatches += 1
+        repair_total += steps[2]
+        if abort in _RETRYABLE:
+            cap = _RETRYABLE[abort]
+            setattr(caps, cap, 2 * getattr(caps, cap))
+            log.info("%s: %s overflow, retrying with %s=%d", what, cap, cap,
+                     getattr(caps, cap))
+            continue
+        break
+    LAST_STATS.update(
+        levels=level, dispatches=dispatches, anchors=acount, abort=abort,
+        trim_steps=steps[0], chain_steps=steps[1], repair_steps=steps[2],
+        repair_rounds_total=repair_total,
+        repair_launches=repair.LAUNCHES - launches0,
+        repair_applied=rstats[0], repair_chain_max=rstats[1],
+        repair_moved_slots=rstats[2],
+    )
+    if abort:
+        log.info("%s aborted (code %d)", what, abort)
+    return T_out, anchors, acount, abort, level
 
 
 def rem_device_forest(T, defers, nsep0, minlength, maxmums, wscore=1,
@@ -1100,54 +1396,22 @@ def rem_device_forest(T, defers, nsep0, minlength, maxmums, wscore=1,
     SA_p = np.full(npad, n - 1, dtype=np.int32)
     LCP_p = np.zeros(npad, dtype=np.int32)
     SEG_p = np.full(npad, -1, dtype=np.int32)
+    seg_rows = np.zeros((F, 8), dtype=np.int32)
     off = 0
-    for sid, (_k, _ab, _ae, _bb, _be, sa, lcp) in enumerate(defers):
+    for sid, (_k, ab, ae, bb, be, sa, lcp) in enumerate(defers):
         sn = len(sa)
         SA_p[off:off + sn] = sa
         LCP_p[off:off + sn] = lcp
         LCP_p[off] = 0  # first-slot LCP is per-segment 0 (split3)
         SEG_p[off:off + sn] = sid
         off += sn
+        seg_rows[sid] = (ab, ae, bb, be, -2 - sid, 0, -1, -1)
 
-    def dev_tensor(a):
-        return torch.from_numpy(a).to(device)
-
-    dispatches = 0
-    repair_total = 0
-    launches0 = repair.LAUNCHES
-    for _attempt in range(5):
-        if F > caps.SMAX:
-            caps.SMAX = _next_pow2(F)
-        seg_tab = np.zeros((caps.SMAX, 8), dtype=np.int32)
-        for sid, (_k, ab, ae, bb, be, _sa, _lcp) in enumerate(defers):
-            seg_tab[sid] = (ab, ae, bb, be, -2 - sid, 0, -1, -1)
-        T_out, anchors, acount, abort, level, steps, rstats = forest_run(
-            dev_tensor(T_p), dev_tensor(SA_p), dev_tensor(LCP_p),
-            dev_tensor(SEG_p), dev_tensor(seg_tab), F, int(nsep0),
-            int(minlength), int(maxmums), int(wscore), int(wpen), caps,
-        )
-        dispatches += 1
-        repair_total += steps[2]
-        if abort in _RETRYABLE:
-            cap = _RETRYABLE[abort]
-            setattr(caps, cap, 2 * getattr(caps, cap))
-            log.info(
-                "device forest: %s overflow, retrying with %s=%d",
-                cap, cap, getattr(caps, cap),
-            )
-            continue
-        break
-
-    LAST_STATS.update(
-        levels=level, dispatches=dispatches, anchors=acount, abort=abort,
-        forest=F, slots=total, trim_steps=steps[0], chain_steps=steps[1],
-        repair_steps=steps[2], repair_rounds_total=repair_total,
-        repair_launches=repair.LAUNCHES - launches0,
-        repair_applied=rstats[0], repair_chain_max=rstats[1],
-        repair_moved_slots=rstats[2],
-    )
+    T_out, anchors, acount, abort, level = _dispatch(
+        T_p, SA_p, LCP_p, SEG_p, seg_rows, nsep0, minlength, maxmums,
+        wscore, wpen, caps, device, "device forest")
+    LAST_STATS.update(forest=F, slots=total)
     if abort:
-        log.info("device forest aborted (code %d)", abort)
         return None
     anchors = anchors[:acount].cpu().numpy().astype(np.int64)
     T_out = T_out[:n].cpu().numpy()
@@ -1163,3 +1427,88 @@ def rem_device_forest(T, defers, nsep0, minlength, maxmums, wscore=1,
         acount, F, level,
     )
     return subtrees, T_out, level
+
+
+def pop_order(parents: np.ndarray, cls: np.ndarray) -> np.ndarray:
+    """Serial LIFO pop order from (parent anchor idx, child class) per
+    anchor: push order parallel/leading/trailing with pop from the end
+    (reveal.c:21-27,1295-1324) == pre-order walk, trailing subtree
+    first."""
+    A = len(parents)
+    lead = np.full(A, -1, np.int64)
+    trail = np.full(A, -1, np.int64)
+    root = -1
+    for i in range(A):
+        p, c = int(parents[i]), int(cls[i])
+        if p < 0:
+            root = i
+        elif c == 1:
+            lead[p] = i
+        else:
+            trail[p] = i
+    order = np.empty(A, np.int64)
+    k = 0
+    stack = [root] if root >= 0 else []
+    while stack:
+        t = stack.pop()
+        order[k] = t
+        k += 1
+        # pop order: trailing first, so push leading first
+        if lead[t] >= 0:
+            stack.append(int(lead[t]))
+        if trail[t] >= 0:
+            stack.append(int(trail[t]))
+    assert k == A, "anchor tree disconnected"
+    return order
+
+
+def rem_device_loop(T, SA, LCP, nsep0, minlength, maxmums, wscore=1,
+                    wpen=1, *, device):
+    """Run the whole pairwise recursion from the root on ``device``
+    (reveal_tpu/index/devloop.py:1695): one live segment, the root A =
+    [0, nsep0), B = [nsep0 + 1, n - 1), over every slot of the text,
+    through ``forest_run`` with the flat chain; a retryable capacity
+    abort re-runs with that capacity doubled.
+
+    Returns ``(anchors, T_out, levels)``: anchors an int64 array of rows
+    (ma, mb, l, a_beg, a_end, b_beg, b_end) in serial LIFO pop order
+    (ready for ``align.rem._rem2_replay``), T_out the lowercased text;
+    or None on a non-retryable abort or a text of 2^30 bytes or more
+    (the caller declines the input).  Fills ``LAST_STATS`` with the JAX
+    loop's keys and the repair counters."""
+    device = torch.device(device)
+    n = len(SA)
+    LAST_STATS.clear()
+    if n >= 2**30 or minlength < 1:
+        return None
+    npad = _next_pow2(n)
+    caps = Caps(
+        K=max(2048, npad // 512),
+        SMAX=max(4096, npad // 512),
+        ACAP=max(4096, npad // 64),
+        # repair candidates per pass grow with text size
+        CCAP=max(1024, npad // 1024),
+        CW=None,
+    )
+    T_p = np.zeros(npad, dtype=np.uint8)
+    T_p[: len(T)] = np.asarray(T, dtype=np.uint8)
+    SA_p = np.full(npad, n - 1, dtype=np.int32)
+    SA_p[:n] = np.asarray(SA, dtype=np.int32)
+    LCP_p = np.zeros(npad, dtype=np.int32)
+    LCP_p[:n] = np.asarray(LCP, dtype=np.int32)
+    SEG_p = np.full(npad, -1, dtype=np.int32)
+    SEG_p[:n] = 0
+    root = np.array([(0, nsep0, nsep0 + 1, n - 1, -1, 0, -1, -1)],
+                    dtype=np.int32)
+    T_out, anchors, acount, abort, level = _dispatch(
+        T_p, SA_p, LCP_p, SEG_p, root, nsep0, minlength, maxmums, wscore,
+        wpen, caps, device, "device loop")
+    if abort:
+        return None
+    anchors = anchors[:acount].cpu().numpy().astype(np.int64)
+    T_out = T_out[:n].cpu().numpy()
+    if acount == 0:
+        return np.zeros((0, 7), np.int64), T_out, 0
+    order = pop_order(anchors[:, 7], anchors[:, 8])
+    log.debug("device loop: %d anchors in %d levels", acount, level)
+    return anchors[order][:, [0, 1, 2, 3, 4, 5, 6]], T_out, level

@@ -217,19 +217,50 @@ def test_gfa_and_fasta_inputs(tmp_path, jax_frontier, multi):
 
 
 def test_forest_declines_keep_their_route(tmp_path, monkeypatch):
-    """A pairwise forest decline is not a frontier input (ROADMAP item 7
-    decides its route): on a stood-in card it raises naming item 7."""
+    """A pairwise forest decline takes the reference's route on the
+    device given: the forest, then the single-root loop, then (when the
+    loop declines too) the per-level frontier, which finishes with the
+    host engine's node state and text; no route raises or reaches the
+    serial host engine.  The card is stood in for: the forest and the
+    loop decline before any tensor moves, and the frontier, which checks
+    the device it was given, runs on the CPU."""
     fastas = _population(tmp_path, 2, 20_000, 5)
+    G, idx = jax_rem.align_genomes(fastas, backend="auto")
+    want_state, want_T = node_state(G), idx.main.T.copy()
     monkeypatch.setattr(port_rem, "resolve_device",
                         lambda _d: torch.device("cuda"))
+    routes = []
 
-    def aborts(*_a, **_k):
-        devloop.LAST_STATS.clear()
-        devloop.LAST_STATS["abort"] = devloop.ABORT_DUP_REF
-        return None
+    def declines(route, code):
+        def run(*_a, device, **_k):
+            routes.append((route, device.type))
+            devloop.LAST_STATS.clear()
+            devloop.LAST_STATS["abort"] = code
+        return run
 
-    monkeypatch.setattr(devloop, "rem_device_forest", aborts)
+    monkeypatch.setattr(devloop, "rem_device_forest",
+                        declines("forest", devloop.ABORT_DUP_REF))
+    monkeypatch.setattr(devloop, "rem_device_loop",
+                        declines("loop", devloop.ABORT_CHAIN_ROUNDS))
+
+    class OnTheCPU(devfrontier.DeviceFrontier):
+        def __init__(self, T, SA, LCP, SO, nsep0, nsamples, device,
+                     stats=None):
+            routes.append(("frontier", torch.device(device).type))
+            super().__init__(T, SA, LCP, SO, nsep0, nsamples, CPU, stats)
+
+    def refused(*_a, **_k):
+        raise AssertionError("the serial host engine ran")
+
+    monkeypatch.setattr(devfrontier, "DeviceFrontier", OnTheCPU)
+    monkeypatch.setattr(port_rem, "_align_loop", refused)
     devfrontier.LAST_STATS.clear()
-    with pytest.raises(RuntimeError, match="item 7"):
-        port_rem.align_genomes(fastas, device="cuda")
-    assert not devfrontier.LAST_STATS
+    G, idx = port_rem.align_genomes(fastas, device="cuda")
+    assert routes == [("forest", "cuda"), ("loop", "cuda"),
+                      ("frontier", "cuda")]
+    why = ("forest: kernel abort code 4 (ABORT_DUP_REF); single-root loop: "
+           "kernel abort code 8 (ABORT_CHAIN_ROUNDS)")
+    assert devloop.LAST_STATS["fallback"] == why
+    assert devfrontier.LAST_STATS["fallback"] == why
+    assert node_state(G) == want_state
+    np.testing.assert_array_equal(idx.main.T, want_T)

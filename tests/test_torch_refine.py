@@ -192,17 +192,43 @@ def test_refine_cli_subprocess_matches_jax_package(tmp_path, jax_two_phase):
         assert fh.read() == ref
 
 
-def test_uncovered_refine_options_raise(tmp_path):
+def test_uncovered_refine_options_raise(tmp_path, monkeypatch):
+    """The options that raised before the port covered them now run on
+    the CPU and give the JAX package's bytes (the name is from when they
+    raised): ``--method muscle`` with a muscle on ``$PATH`` that fails
+    (the bubble stays as it was), ``--method reveal_rem`` and
+    ``--logadd-compat``; a refine without --all, --simple or --complex
+    still exits."""
+    import reveal_tpu.hmm.msa as jax_msa
+    from reveal_tpu_torch.hmm import msa as port_msa
+
     gfa, kw, _ = _graphs(tmp_path)["region"]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_refine.refine_all(port_read_gfa(str(gfa)), device="cpu",
-                               method="muscle", **kw)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_refine.refine_all(port_read_gfa(str(gfa)), device="cpu",
-                               method="reveal_rem", **kw)
-    with pytest.raises(NotImplementedError, match="logadd-compat"):
-        port_cli.main(["refine", str(gfa), "--all", "--device", "cpu",
-                       "--logadd-compat"])
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    (bindir / "muscle").write_text("#!/bin/sh\nexit 1\n")
+    (bindir / "muscle").chmod(0o755)
+    monkeypatch.setenv("PATH", str(bindir) + os.pathsep + os.environ["PATH"])
+    monkeypatch.chdir(tmp_path)
+    for extra in (dict(method="muscle"), dict(method="reveal_rem"),
+                  dict(logadd_compat=True)):
+        compat = extra.pop("logadd_compat", False)
+        jax_msa.set_logadd_compat(compat)
+        try:
+            ref = _jax_refined(str(gfa), str(tmp_path / "jax.gfa"),
+                               **dict(kw, consgap=False, **extra))
+            out = str(tmp_path / "port.gfa")
+            port_cli.main(["refine", str(gfa), "--all", "--device", "cpu",
+                           "-o", out, *_cli_args(kw), *_cli_args(extra)]
+                          + (["--logadd-compat"] if compat else []))
+        finally:
+            jax_msa.set_logadd_compat(False)
+            port_msa.set_logadd_compat(False)
+        with open(out, "rb") as fh:
+            assert fh.read() == ref, extra
+        st = port_refine.LAST_STATS
+        assert st["method"] == extra.get("method", "reveal_probcons")
+        assert st["compat"] == compat
+        assert st["refined"] == (0 if extra.get("method") == "muscle" else 1)
     with pytest.raises(SystemExit):
         port_cli.main(["refine", str(gfa), "--device", "cpu"])
 

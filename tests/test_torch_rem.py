@@ -3,7 +3,8 @@
 The port (reveal_tpu_torch, forest on the CPU through the plain torch
 path) must write the same GFA bytes as the JAX package's device hybrid
 and as the serial host engine; it must never import jax or reveal_tpu;
-and inputs it does not cover must raise rather than go to another engine.
+inputs it does not cover must raise, and no route may reach the serial
+host engine.
 """
 
 import ast
@@ -23,7 +24,7 @@ from reveal_tpu.core.io_gfa import seq2node, write_gfa
 from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
 from reveal_tpu_torch.core.torchconfig import resolve_device
-from reveal_tpu_torch.index import devloop
+from reveal_tpu_torch.index import devfrontier, devloop
 from reveal_tpu_torch.index import window_resolve as wr
 
 torch.set_num_threads(2)
@@ -236,18 +237,31 @@ def test_cli_flags_match_the_reveal_tpu_cli(tmp_path, monkeypatch):
 
 def test_kernel_abort_falls_back_to_host_engine(tmp_path, monkeypatch):
     """On the CPU device a non-retryable abort code (here
-    ABORT_LEVEL_OVERFLOW, forced by a one-level cap) makes the port
-    finish on the host engine, with the host's output and the code
-    recorded."""
+    ABORT_LEVEL_OVERFLOW, forced by a one-level cap) makes the forest and
+    then the single-root loop decline, and the per-level frontier
+    finishes the pair with the host engine's node state and text, both
+    codes recorded and the serial host engine never called (the name is
+    from when it finished on the host engine)."""
+    from test_torch_frontier_routes import node_state
+
     fastas = _write_pair(tmp_path, 20_000, seed=5)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    want_state, want_T = node_state(G), idx.main.T.copy()
     monkeypatch.setattr(devloop, "_LMAX", 1)
+    monkeypatch.setattr(port_rem, "_align_loop", _refused)
     G, idx = port_rem.align_genomes(fastas, device="cpu")
     st = dict(devloop.LAST_STATS)
     assert st["abort"] == jax_devloop.ABORT_LEVEL_OVERFLOW, st
-    assert st["fallback"] == "kernel abort code %d" % st["abort"]
-    assert _gfa(G, idx, str(tmp_path / "port.gfa")) == host
+    code = "kernel abort code 5 (ABORT_LEVEL_OVERFLOW)"
+    assert st["fallback"] == "forest: %s; single-root loop: %s" % (code,
+                                                                   code)
+    assert devfrontier.LAST_STATS["fallback"] == st["fallback"]
+    assert node_state(G) == want_state
+    np.testing.assert_array_equal(idx.main.T, want_T)
+
+
+def _refused(*_a, **_k):
+    raise AssertionError("the serial host engine ran")
 
 
 def _forest_aborts(*_a, **_k):
@@ -259,26 +273,43 @@ def _forest_aborts(*_a, **_k):
 @pytest.mark.parametrize("stage", ["forest", "prefix"])
 def test_declined_input_raises_on_cuda(tmp_path, monkeypatch, stage):
     """On a CUDA device a forest abort code or a host prefix that cannot
-    defer raises instead of finishing on the host engine.  The card is
+    defer sends the pair to the single-root loop on the same device,
+    which finishes it with the host engine's GFA: no error, the decline
+    named in ``LAST_STATS["fallback"]``, the serial host engine never
+    called (the name is from when such inputs raised).  The card is
     stood in for: the forest (or the prefix) declines before any tensor
-    moves."""
+    moves, and the loop, which records the device it was given, runs on
+    the CPU."""
     import reveal_tpu_torch.native as native
 
     fastas = _write_pair(tmp_path, 20_000, seed=5)
+    G, idx = jax_rem.align_genomes(fastas, backend="auto")
+    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
     monkeypatch.setattr(port_rem, "resolve_device",
                         lambda _d: torch.device("cuda"))
+    routes = []
     if stage == "forest":
-        monkeypatch.setattr(devloop, "rem_device_forest", _forest_aborts)
-        match = "kernel abort code %d" % jax_devloop.ABORT_DUP_REF
+        def forest(*a, **k):
+            routes.append(("forest", k["device"].type))
+            return _forest_aborts()
+
+        monkeypatch.setattr(devloop, "rem_device_forest", forest)
+        why = "forest: kernel abort code 4 (ABORT_DUP_REF)"
     else:
         monkeypatch.setattr(native, "rem2_defer_native",
-                            lambda *_a, **_k: None)
-        match = "host prefix pick deferred"
-    host_align = []
-    monkeypatch.setattr(port_rem, "_align_loop",
-                        lambda *a: host_align.append(a))
-    with pytest.raises(RuntimeError, match=match) as err:
-        port_rem.align_genomes(fastas, device="cuda")
-    assert "run reveal_tpu" in str(err.value)
-    assert devloop.LAST_STATS["fallback"] in str(err.value)
-    assert not host_align
+                            lambda *_a, **_k: routes.append(("prefix",)))
+        why = "forest: host prefix pick deferred"
+    loop = devloop.rem_device_loop
+
+    def on_the_cpu(*a, device):
+        routes.append(("loop", device.type))
+        return loop(*a, device=torch.device("cpu"))
+
+    monkeypatch.setattr(devloop, "rem_device_loop", on_the_cpu)
+    monkeypatch.setattr(port_rem, "_align_loop", _refused)
+    G, idx = port_rem.align_genomes(fastas, device="cuda")
+    assert routes == [("forest", "cuda") if stage == "forest" else
+                      ("prefix",), ("loop", "cuda")]
+    assert devloop.LAST_STATS["fallback"] == why
+    assert devloop.LAST_STATS["abort"] == 0
+    assert _gfa(G, idx, str(tmp_path / "port.gfa")) == host

@@ -142,6 +142,7 @@ WHOLE_FILES = [
     "native/__init__.py", "align/graphops.py", "align/chaining.py",
     "align/picker.py", "graph/bubbles.py", "graph/extract.py",
     "graph/simplify.py", "hmm/refinelog.py", "index/esa_index.py",
+    "hmm/compat.py",
 ]
 
 # lines of a whole-file copy that differ: (only in the original, only in
@@ -184,7 +185,7 @@ COPIED = {
         "_leftmax_vec", "pairwise_mums", "_psv_nsv", "lcp_intervals",
         "tuples_from_arrays", "multimums", "multimems",
         "multimums_oracle"],
-    "index.devloop": ["_next_pow2", "forest_pop_order"],
+    "index.devloop": ["_next_pow2", "forest_pop_order", "pop_order"],
     "index.devfrontier": ["_next_pow2"],
     "align.rem": [
         "graphalign", "_enum_pick", "_pairwise_fast_eligible",
@@ -202,9 +203,10 @@ COPIED = {
         "_Aln",
         "_build_posterior", "_align_alignments", "_add_gaps",
         "_compute_tree", "_consistency_round_sparse", "probcons_align",
-        "_project", "_refine_once", "_refine_stage", "_annotation"],
+        "_project", "_refine_once", "_refine_stage", "_annotation",
+        "set_logadd_compat"],
     "hmm.refine": [
-        "_mp_run_job", "build_column_graph", "prepare_bubble_alleles",
+        "_mp_run_job", "_external_msa", "build_column_graph", "prepare_bubble_alleles",
         "replace_bubble", "select_realign_bubbles",
         "collect_bubble_aobjs"],
 }
@@ -243,21 +245,20 @@ CHANGED = {
         ("try:|return build_esa_jax(T_np)",
          'return build_esa(T_np, backend="np")'),
     ],
-    # external aligners and the whole-MSA native result are not ported
+    # the whole-MSA native result is not ported
     ("hmm.refine", "msa_to_graph"): [
         ("precomputed_msa=None,",) * 2,
-        ('"""MSA + column-graph construction (refine.msa2graph): the '
-         "built-in", "from $PATH (muscle/probcons/msaprobs/pecan, "
-         'refine.py:586-640)."""'),
-        ('if method in ("muscle", "probcons", "msaprobs", "pecan"):',
-         "else:"),
+        ("elif precomputed_msa is not None:",
+         'seqs[ng.graph["path2id"][name]] = seq'),
     ],
-    # reveal_rem is not ported
+    # reveal_rem runs the port's host engine on (name, seq) tuples
+    # (align_seqs_host); the whole-MSA native result is not ported
     ("hmm.refine", "refine_bubble"): [
         ("precomputed_msa=None,",) * 2,
         ('"""refine.py:149-273: reveal_probcons / external MSA methods, '
          "or", 'refine.py:219-231)."""'),
-        ('if method == "reveal_rem":', "else:"),
+        ("from ..align.rem import align_seqs",) * 2,
+        ("ng, idx = align_seqs(",) * 2,
         ("precomputed_msa=precomputed_msa,",) * 2,
     ],
     # the chain on a CUDA device, the two-phase route for the bubbles over
@@ -328,10 +329,28 @@ CHANGED = {
     ],
     # the device route only (frontier=True's, on a device given): no
     # frontier or threads switch, no mesh, the serial host engine and the
-    # level-parallel host loop are not entry points here
+    # level-parallel host loop are not entry points here (align_seqs_host
+    # runs the host engine); the input graph is built by _seqs_graph
     ("align.rem", "align_seqs"): [
         ("threads: int = 0,", "mesh=None,"),
+        ("ts = TextStore()", "idx.nodes = root_nodes"),
         ("if frontier or mesh is not None:", "_align_loop(G, t, idx, cfg)"),
+    ],
+    ("align.rem", "_seqs_graph:align_seqs"): [
+        ("def align_seqs(", '"""'),
+        ("cfg = PickerConfig(", "return G, idx"),
+    ],
+    # the loop runs on a device given; no environment switch to disable
+    # it; a --notrim input is not taken (the port's frontier honours it)
+    ("align.rem", "_rem_device_loop"): [
+        ("G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: "
+         "PickerConfig",) * 2,
+        ('"""Whole-recursion DEVICE fast path',
+         'kernel aborted (caller falls back)."""'),
+        ('if os.environ.get("REVEAL_TPU_DISABLE_DEVLOOP"):', "return None"),
+        ("steps = _rem_device_hybrid(G, t, root, cfg)",) * 2,
+        ("from ..index.devloop import rem_device_loop",) * 2,
+        ("res = rem_device_loop(",) * 2,
     ],
 }
 
@@ -372,7 +391,7 @@ def test_constants_equal_the_originals():
     import reveal_tpu_torch.hmm.msa as pm
     import reveal_tpu_torch.index.devloop as pd
 
-    for k in ("_LMAX", "_WREP", "_WRV", "_RETRYABLE") + tuple(
+    for k in ("_LMAX", "_RMAX", "_WREP", "_WRV", "_RETRYABLE") + tuple(
             n for n in dir(jd) if n.startswith("ABORT_")):
         assert getattr(pd, k) == getattr(jd, k), k
     for k in ("POSTERIOR_CUTOFF", "OP_B", "OP_Y", "OP_X",
