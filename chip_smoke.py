@@ -1,7 +1,7 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi|frontier|single]
+                          [--only kernels|profile|multi|frontier|single|align]
                           [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
@@ -9,7 +9,7 @@ and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
 phases 1-2, the window-resolve checks of phase 3 and phase 5c;
 ``--only frontier`` phases 1-2 and 5d; ``--only single`` phases 1-2 and
-5e.
+5e; ``--only align`` phases 1-2 and 7.
 ``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
 instead of this one (with ``--only profile``: the parent's forest timed
 beside this one's, in turns, on one card in one go).
@@ -119,8 +119,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6b. a graph of one six-path bubble of about 4 kbp (its chain tensor over
    ``msa.CHAIN_BYTES_CAP``) and four near 500 bp: the chain for four
    bubbles and the two-phase route for one in one run;
-7. ``rem`` then ``refine`` (on the chain) end to end on the 2 x
-   ``length`` GFA of phase 5.
+6c. ``rem`` then ``refine`` (on the chain) end to end on the 2 x
+   ``length`` GFA of phase 5;
+7. ``align``, the pipeline rem -> unzip -> refine -> variants (three
+   VCFs) in one process: (a) ``python -m reveal_tpu_torch.cli align
+   ... --run --device cuda -o prg`` on phase 5c (a)'s six genomes
+   (``simulate_population(6, 100_000, seed)``): ``prg.gfa`` byte for byte
+   the host engine's GFA of 5c (a) (the multi loop, window-resolve once
+   a repair round, no repair-pass launch), ``prg.unzipped.gfa`` and the
+   anchored and unzipped VCFs the host ``unzip`` and ``variants`` of
+   those bytes, every path of ``prg.unzipped.realigned.gfa`` spelling its
+   input (the chain: forward, backward and MEA-score launches as the
+   bubbles' shapes ask), ``prg.unzipped.realigned.gfa`` and
+   ``prg.refined.vcf`` byte for byte those of ``refine --device cpu``
+   and ``variants`` of the same unzipped GFA; each stage timed
+   (synchronised clock) and each kernel's smallest and largest launch of
+   the run held against its plain version on the same inputs; (b) ``align --run
+   --order sequential --chunksize 2`` on ``simulate_population(4,
+   50_000, seed)`` on the card and on the CPU: every file equal in bytes,
+   the pair chunks on the forest (one repair-pass launch a pass, the
+   smallest and largest passes held against plain), the ``.gfa`` level on the per-level
+   frontier.
 
 Limits: M and G0 cells where kernel and plain are both above LOG_ZERO/2
 agree within 1e-4 * max(L1p, L2p) (float32 at magnitudes that grow with
@@ -1533,15 +1552,18 @@ def hold_window_resolve(fastas, workdir):
 
 
 def run_multi(seed, workdir):
-    """Phase 5c.  Returns the window-resolve row's update: the main
-    path's launches (case a) and the kernel's times at its shapes."""
+    """Phase 5c.  Returns the window-resolve row's update (the multi
+    path's launches, case a, and the kernel's times at its shapes) and
+    case (a)'s (fastas, host-engine GFA, {record: sequence})."""
     cases = {}
     for label, n, length, split in MULTI_CASES:
-        fastas, total_bp, _want = write_population(n, length, seed, workdir,
-                                                   split)
+        fastas, total_bp, want = write_population(n, length, seed, workdir,
+                                                  split)
         st = run_multi_case(label, fastas, total_bp, workdir)
         if label == "a":
             st["profile"] = profile_multi(label, fastas, workdir)
+            # phase 7 (a) runs align on these genomes against this GFA
+            case_a = (fastas, os.path.join(workdir, "host_a.gfa"), want)
         cases[label] = (fastas, st)
     fastas_a, st_a = cases["a"]
     clock_multi(fastas_a, workdir)
@@ -1550,7 +1572,7 @@ def run_multi(seed, workdir):
     if held["rounds"] != st_a["launches"]:
         raise AssertionError("the held run made %d rounds, the main run %d"
                              % (held["rounds"], st_a["launches"]))
-    return {
+    return case_a, {
         "launches": st_a["launches"],
         "main_path": "rem, 3+ genomes: multi-loop repair rounds",
         "ms": held["ms"], "plain_ms": held["plain_ms"],
@@ -2642,6 +2664,607 @@ def stage1_split(bubbles, st):
     return launched
 
 
+# ----------------------------------------------------------------------
+# phase 7: the align pipeline on the card
+# ----------------------------------------------------------------------
+# (b): genomes and bp a genome of the sequential case
+ALIGN_SEQUENTIAL = (4, 50_000)
+# every file align --run writes at its defaults
+ALIGN_FILES = ("prg.gfa", "prg.unzipped.gfa", "prg.unzipped.realigned.gfa",
+               "prg.anchored.vcf", "prg.unzipped.vcf", "prg.refined.vcf")
+
+
+def _sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launch_counts():
+    from reveal_tpu_torch.hmm import mea_score
+    from reveal_tpu_torch.hmm import pairhmm_dp as dp
+    from reveal_tpu_torch.index import repair
+    from reveal_tpu_torch.index import window_resolve as wr
+
+    return {"window_resolve": wr.LAUNCHES, "repair_pass": repair.LAUNCHES,
+            "fwd": dp.LAUNCHES["fwd"], "bwd": dp.LAUNCHES["bwd"],
+            "mea_score": mea_score.LAUNCHES}
+
+
+def _zero_launch_counts():
+    from reveal_tpu_torch.hmm import mea_score
+    from reveal_tpu_torch.hmm import pairhmm_dp as dp
+    from reveal_tpu_torch.index import repair
+    from reveal_tpu_torch.index import window_resolve as wr
+
+    wr.LAUNCHES = repair.LAUNCHES = mea_score.LAUNCHES = 0
+    dp.LAUNCHES["fwd"] = dp.LAUNCHES["bwd"] = 0
+
+
+class _PipelineWatch:
+    """``align --run`` watched stage by stage: ``cli.main`` (which
+    ``_run_pipeline_script`` calls for every line) wrapped with a
+    synchronised clock, the kernels' launches over the stage and the
+    stats it left; and each kernel's wrapper wrapped to keep the inputs
+    and output of its smallest and of its largest launch (the first of
+    each size; cloned, no launch is added), to hold against the plain
+    version after the run."""
+
+    KERNELS = ("window_resolve", "fwd", "bwd", "mea_score")
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.stages = []
+        self.kept = {}
+
+    def _wants(self, name, size):
+        """Which of this kernel's kept launches one of ``size`` replaces:
+        ("smallest",), ("largest",), both or none."""
+        kept = self.kept.get(name, {})
+        return tuple(
+            which for which, better in (("smallest", size.__lt__),
+                                        ("largest", size.__gt__))
+            if which not in kept or better(kept[which][0]))
+
+    def _keep(self, name, size, args, out):
+        wants = self._wants(name, size)
+        if wants:
+            clone = (lambda v: v.clone() if hasattr(v, "clone") else v)
+            launch = (size, tuple(clone(a) for a in args),
+                      tuple(clone(o) for o in out))
+            for which in wants:
+                self.kept.setdefault(name, {})[which] = launch
+
+    def __enter__(self):
+        from reveal_tpu_torch import cli
+        from reveal_tpu_torch.hmm import msa, pairhmm
+        from reveal_tpu_torch.hmm import pairhmm_dp as dp
+        from reveal_tpu_torch.index import devfrontier, devloop, devloop_multi
+        from reveal_tpu_torch.index import repair
+        from reveal_tpu_torch.index import window_resolve as wr
+        from reveal_tpu_torch.hmm import refine
+
+        self._orig = {"main": cli.main, "wr": wr.window_resolve,
+                      "fwd": dp.fwd_dp, "bwd": dp.bwd_dp,
+                      "mea_msa": msa.mea_score, "mea_ph": pairhmm.mea_score,
+                      "repair": repair.repair_segments}
+        orig = self._orig
+
+        def stage(argv):
+            for mod in (devloop, devloop_multi, devfrontier, refine):
+                mod.LAST_STATS.clear()
+            before = _launch_counts()
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            rc = orig["main"](argv)
+            _sync(self.dev)
+            secs = time.perf_counter() - t0
+            after = _launch_counts()
+            stats = {name: dict(mod.LAST_STATS) for name, mod in (
+                ("forest", devloop), ("multi", devloop_multi),
+                ("frontier", devfrontier), ("refine", refine))}
+            self.stages.append((argv[0], secs,
+                                {k: after[k] - before[k] for k in after},
+                                stats))
+            return rc
+
+        def window_resolve(lcp, q, thr, wrv=WRV):
+            out = orig["wr"](lcp, q, thr, wrv)
+            self._keep("window_resolve", q.numel() * wrv, (lcp, q, thr, wrv),
+                       (out,))
+            return out
+
+        def fwd(xcls, ycls, lx, params):
+            out = orig["fwd"](xcls, ycls, lx, params)
+            self._keep("fwd", xcls.shape[0] * xcls.shape[1] * ycls.shape[1],
+                       (xcls, ycls, lx, params), out)
+            return out
+
+        def bwd(xcls, ycls, lx, ly, params):
+            out = orig["bwd"](xcls, ycls, lx, ly, params)
+            self._keep("bwd", xcls.shape[0] * xcls.shape[1] * ycls.shape[1],
+                       (xcls, ycls, lx, ly, params), (out,))
+            return out
+
+        def mea(which):
+            def run(p, nrows=None):
+                out = orig[which](p, nrows)
+                self._keep("mea_score", p.numel(), (p, nrows), (out,))
+                return out
+            return run
+
+        def repair_pass(SA, LCP, BWT, SEG, beg, cq, centry_next, rc, SMAX,
+                        stats):
+            # the pass works in place: its inputs are cloned before the
+            # launch; its size is (npad, crossing suffixes), the count read
+            # off the card (one host sync a pass); a pass with none is not
+            # kept
+            size = (SA.numel(), int(rc))
+            wants = self._wants("repair_pass", size) if size[1] else ()
+            if wants:
+                args = tuple(t.clone() for t in (SA, LCP, BWT, SEG, beg, cq,
+                                                 centry_next, rc, stats))
+            out = orig["repair"](SA, LCP, BWT, SEG, beg, cq, centry_next,
+                                 rc, SMAX, stats)
+            if wants:
+                launch = (size, args + (SMAX,), tuple(
+                    t.clone() for t in out[:3] + (stats,)))
+                for which in wants:
+                    self.kept.setdefault("repair_pass", {})[which] = launch
+            return out
+
+        cli.main = stage
+        repair.repair_segments = repair_pass
+        wr.window_resolve = window_resolve
+        dp.fwd_dp, dp.bwd_dp = fwd, bwd
+        msa.mea_score, pairhmm.mea_score = mea("mea_msa"), mea("mea_ph")
+        return self
+
+    def __exit__(self, *exc):
+        from reveal_tpu_torch import cli
+        from reveal_tpu_torch.hmm import msa, pairhmm
+        from reveal_tpu_torch.hmm import pairhmm_dp as dp
+        from reveal_tpu_torch.index import window_resolve as wr
+
+        from reveal_tpu_torch.index import repair
+
+        o = self._orig
+        cli.main, wr.window_resolve = o["main"], o["wr"]
+        repair.repair_segments = o["repair"]
+        dp.fwd_dp, dp.bwd_dp = o["fwd"], o["bwd"]
+        msa.mea_score, pairhmm.mea_score = o["mea_msa"], o["mea_ph"]
+
+    def run(self, argv):
+        """The outer ``align`` call (not itself a stage)."""
+        return self._orig["main"](argv)
+
+    def hold(self, label):
+        """Each kept launch against the plain version on the same inputs:
+        the repair pass (SA, LCP, BWT and its counters), window-resolve
+        and ``mea_score`` exactly, the DP grids within
+        1e-4 * max(L1p, L2p) on the cells both call real.  Returns
+        {kernel: {"smallest" | "largest": (max |error|, shape, kernel ms,
+        plain ms)}}, the times of the smallest launch only."""
+        import torch
+
+        from reveal_tpu_torch.hmm import mea_score as ms
+        from reveal_tpu_torch.hmm import pairhmm_dp as dp
+        from reveal_tpu_torch.index import window_resolve as wr
+
+        from reveal_tpu_torch.index import devloop
+
+        errs = {}
+        for name, which, args, out in sorted(
+                (name, which, args, out)
+                for name, launches in self.kept.items()
+                for which, (_size, args, out) in launches.items()):
+            if name == "repair_pass":
+                SA, LCP, BWT, SEG, beg, cq, cnext, rc, stats, SMAX = args
+                # the counters go on from where the launch found them (the
+                # longest run is a maximum over passes)
+                st = stats.clone()
+                ref = devloop.repair_rounds_plain(
+                    SA.clone(), LCP.clone(), BWT.clone(), SEG, beg, cq, cnext,
+                    rc, SMAX, st)
+                err = max(int((k.long() - p.long()).abs().max())
+                          for k, p in zip(out[:3], ref[:3]))
+                shape = "npad %d, CCAP %d, rc %d" % (SA.numel(), cq.numel(),
+                                                     int(rc))
+                ok = err == 0 and torch.equal(out[3], st)
+            elif name == "window_resolve":
+                lcp, q, thr, wrv = args
+                ref = wr.window_resolve_plain(lcp, q, thr, wrv)
+                err = int((out[0].long() - ref.long()).abs().max())
+                shape = "RBV %d, npad %d" % (q.numel(), lcp.numel())
+                ok = err == 0
+            elif name == "mea_score":
+                p, nrows = args
+                ref = ms.mea_score_plain(p, nrows)
+                err = float((out[0] - ref).abs().max())
+                shape = "%d x %d x %d" % tuple(p.shape)
+                ok = torch.equal(out[0], ref)
+            else:
+                xcls, ycls, lx = args[:3]
+                params = args[-1]
+                lim = 1e-4 * max(xcls.shape[1], ycls.shape[1])
+                shape = "%d x %d x %d" % (xcls.shape[0], xcls.shape[1],
+                                          ycls.shape[1])
+                if name == "fwd":
+                    m_p, snap_p = dp.fwd_dp_plain(xcls, ycls, lx, params)
+                    err = max(_grid_err(out[0], m_p, label + " fwd M"),
+                              _grid_err(out[1], snap_p,
+                                        label + " fwd snapshot"))
+                else:
+                    ly = args[3]
+                    ref = dp.flip_within(dp.bwd_dp_plain(xcls, ycls, params),
+                                         lx, ly)
+                    err = _grid_err(out[0], ref, label + " bwd G0")
+                ok = err <= lim
+            if not ok:
+                raise AssertionError("%s: %s's %s launch differs from its "
+                                     "plain version by %g at %s"
+                                     % (label, name, which, err, shape))
+            errs.setdefault(name, {})[which] = (err, shape) + (
+                self._times(name, args) if which == "smallest"
+                else (None, None))
+        return errs
+
+    def _times(self, name, args):
+        """(kernel ms, plain ms) of one call on the kept inputs, from CUDA
+        events in turns plain, kernel, kernel, plain (none off a card)."""
+        import torch
+
+        from reveal_tpu_torch.hmm import mea_score as ms
+        from reveal_tpu_torch.hmm import pairhmm_dp as dp
+        from reveal_tpu_torch.index import devloop, repair
+        from reveal_tpu_torch.index import window_resolve as wr
+
+        if torch.device(self.dev).type != "cuda":
+            return (None, None)
+        if name == "repair_pass":
+            def pair(fn):
+                def run():
+                    fresh = [t.clone() for t in args[:9]]
+                    fresh[8].zero_()
+                    fn(*fresh[:8], args[9], fresh[8])
+                return run
+            kernel = pair(repair.repair_segments)
+            plain = pair(devloop.repair_rounds_plain)
+        elif name == "window_resolve":
+            kernel = lambda: wr.window_resolve(*args)  # noqa: E731
+            plain = lambda: wr.window_resolve_plain(*args)  # noqa: E731
+        elif name == "mea_score":
+            kernel = lambda: ms.mea_score(*args)  # noqa: E731
+            plain = lambda: ms.mea_score_plain(*args)  # noqa: E731
+        elif name == "fwd":
+            kernel = lambda: dp.fwd_dp(*args)  # noqa: E731
+            plain = lambda: dp.fwd_dp_plain(*args)  # noqa: E731
+        else:
+            kernel = lambda: dp.bwd_dp(*args)  # noqa: E731
+            plain = lambda: dp.flip_within(  # noqa: E731
+                dp.bwd_dp_plain(args[0], args[1], args[4]), args[2], args[3])
+        t = {kernel: [], plain: []}
+        for fn in (plain, kernel, kernel, plain):
+            t[fn].append(_event_ms(fn, 1))
+        return (sum(t[kernel]) / 2, sum(t[plain]) / 2)
+
+
+def _run_align(fastas, outdir, dev, extra=()):
+    """``cli align FASTAS --run --device DEV -o prg`` in ``outdir`` with
+    the launch counts set to 0 just before it; returns (watch, seconds
+    end to end, launches, {file: bytes})."""
+    os.makedirs(outdir, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(outdir)
+    try:
+        _zero_launch_counts()
+        with _PipelineWatch(dev) as watch:
+            _sync(dev)
+            t0 = time.perf_counter()
+            watch.run(["align", *fastas, "--run", "--device", dev, "-o",
+                       "prg", *extra])
+            _sync(dev)
+            secs = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        os.chdir(cwd)
+    files = {fn: _read(os.path.join(outdir, fn))
+             for fn in sorted(os.listdir(outdir))}
+    return watch, secs, launches, files
+
+
+def _held_line(errs):
+    return ", ".join("%s %s %s max |err| %.3e, kernel %s ms, plain %s ms"
+                     % (k, which, v[1], v[0], v[2], v[3])
+                     for k, launches in sorted(errs.items())
+                     for which, v in sorted(launches.items(), reverse=True))
+
+
+def _stage_line(watch, secs):
+    return ", ".join(
+        ["%s %.6f s" % (name, s) for name, s, _l, _st in watch.stages]
+        + ["end to end %.6f s (the stages %.6f s)"
+           % (secs, sum(s for _n, s, _l, _st in watch.stages))])
+
+
+def _host_unzip_variants(gfa, workdir):
+    """``unzip -u10`` and ``variants --vcf`` of ``gfa`` and of its
+    unzipped graph, host code only, in a directory of their own: the
+    bytes the pipeline's host stages must give."""
+    from reveal_tpu_torch import cli
+
+    wd = os.path.join(workdir, "host_stages")
+    os.makedirs(wd, exist_ok=True)
+    with open(os.path.join(wd, "prg.gfa"), "wb") as fh:
+        fh.write(_read(gfa))
+    cwd = os.getcwd()
+    os.chdir(wd)
+    try:
+        cli.main(["unzip", "prg.gfa", "-u10"])
+        for src, dst in (("prg.gfa", "prg.anchored.vcf"),
+                         ("prg.unzipped.gfa", "prg.unzipped.vcf")):
+            with open(dst, "w") as fh, contextlib.redirect_stdout(fh):
+                cli.main(["variants", src, "--vcf"])
+    finally:
+        os.chdir(cwd)
+    return {fn: _read(os.path.join(wd, fn)) for fn in
+            ("prg.unzipped.gfa", "prg.anchored.vcf", "prg.unzipped.vcf")}
+
+
+def _refine_cpu(unzipped, workdir):
+    """The align script's ``refine`` line on the CPU for ``unzipped`` and
+    ``variants --vcf`` of its result, in a directory of their own: the
+    bytes the pipeline's refine stage and its VCF must give.  Returns
+    ({file: bytes}, seconds of the refine)."""
+    from reveal_tpu_torch import cli
+
+    wd = os.path.join(workdir, "cpu_refine")
+    os.makedirs(wd)
+    with open(os.path.join(wd, "prg.unzipped.gfa"), "wb") as fh:
+        fh.write(_read(unzipped))
+    cwd = os.getcwd()
+    os.chdir(wd)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["refine", "prg.unzipped.gfa", "--all", "--maxsize=10000",
+                  "--minsize=2", "--mindiff=0", "--minconf=0", "-o",
+                  "prg.unzipped.realigned.gfa", "--device", "cpu"])
+        secs = time.perf_counter() - t0
+        with open("prg.refined.vcf", "w") as fh, \
+                contextlib.redirect_stdout(fh):
+            cli.main(["variants", "prg.unzipped.realigned.gfa", "--vcf"])
+    finally:
+        os.chdir(cwd)
+    return {fn: _read(os.path.join(wd, fn)) for fn in
+            ("prg.unzipped.realigned.gfa", "prg.refined.vcf")}, secs
+
+
+def run_align_a(case, workdir, dev="cuda"):
+    """Phase 7 (a): ``align --run`` on the six genomes of phase 5c (a).
+    Returns the kernels' launches and their errors against plain."""
+    from reveal_tpu_torch.hmm import refine
+
+    fastas, host_gfa, want = case
+    out = os.path.join(workdir, "align_a")
+    watch, secs, launches, files = _run_align(fastas, out, dev)
+    names = [s[0] for s in watch.stages]
+    if names != ["rem", "unzip", "refine", "variants", "variants",
+                 "variants"] or sorted(files) != sorted(ALIGN_FILES):
+        raise AssertionError("align (a): stages %s, files %s"
+                             % (names, sorted(files)))
+    (_n, t_rem, l_rem, st_rem), _u, (_r, t_ref, l_ref, st_ref) = \
+        watch.stages[:3]
+    multi, st = st_rem["multi"], st_ref["refine"]
+    # the rem stage: the multi loop whole, the host engine's bytes
+    if files["prg.gfa"] != _read(host_gfa):
+        raise AssertionError("align (a): prg.gfa (%d bytes) differs from "
+                             "the host engine's (%d bytes)"
+                             % (len(files["prg.gfa"]),
+                                len(_read(host_gfa))))
+    if multi.get("abort") != 0 or multi.get("fallback") is not None:
+        raise AssertionError("align (a): the multi loop did not finish: %r"
+                             % multi)
+    rounds = multi["repair_rounds_total"]
+    if not (rounds > 0 and l_rem["window_resolve"] == rounds
+            == launches["window_resolve"]) or launches["repair_pass"]:
+        raise AssertionError(
+            "align (a): window_resolve launched %d times (%d in rem) for %d "
+            "repair rounds; repair_pass %d times"
+            % (launches["window_resolve"], l_rem["window_resolve"], rounds,
+               launches["repair_pass"]))
+    # the host stages: the host unzip and variants of those bytes
+    host = _host_unzip_variants(host_gfa, workdir)
+    for fn, data in host.items():
+        if files[fn] != data:
+            raise AssertionError("align (a): %s differs from the host "
+                                 "stages' (%d against %d bytes)"
+                                 % (fn, len(files[fn]), len(data)))
+    # the refine stage: the chain on the card, every path spells its input
+    _check_refine_stats(st, {"fwd": l_ref["fwd"], "bwd": l_ref["bwd"],
+                             "mea": l_ref["mea_score"]}, "align (a) refine",
+                        "chain" if dev == "cuda" else "two-phase")
+    if (l_ref["fwd"], l_ref["bwd"], l_ref["mea_score"]) != (
+            launches["fwd"], launches["bwd"], launches["mea_score"]):
+        raise AssertionError("align (a): DP or MEA-score launches outside "
+                             "the refine stage: %r" % launches)
+    _check_paths(os.path.join(out, "prg.unzipped.realigned.gfa"), want)
+    errs = watch.hold("align (a)")
+    if sorted(errs) != sorted(_PipelineWatch.KERNELS):
+        raise AssertionError("align (a): kernels held: %s" % sorted(errs))
+    print("align (a) (%s, %d paths; align --run --device %s -o prg): "
+          "prg.gfa byte-identical to the host engine's (phase 5c (a)'s, %d "
+          "bytes); prg.unzipped.gfa, prg.anchored.vcf, prg.unzipped.vcf "
+          "equal to the host unzip and variants of those bytes; every path "
+          "of prg.unzipped.realigned.gfa spells its input"
+          % (", ".join(os.path.basename(f) for f in fastas), len(want), dev,
+             len(files["prg.gfa"])))
+    print("align (a) stages (synchronised host clock; in one process, the "
+          "kernels built before): %s" % _stage_line(watch, secs))
+    print("align (a) launches: window_resolve %d (= the rem stage's %d "
+          "repair rounds in %d levels), repair_pass %d; refine: %d bubbles "
+          "(%d on the chain), %d pairs, forward %d = backward %d, mea_score "
+          "%d (chain chunks %d, chain DP batches %d, two-phase batches %d); "
+          "refine: extract %.6f s, chain %.6f s, host MSA %.6f s, splice "
+          "%.6f s"
+          % (launches["window_resolve"], rounds, multi["levels"],
+             launches["repair_pass"], st["bubbles"], st["chain_bubbles"],
+             st["pairs"], launches["fwd"], launches["bwd"],
+             launches["mea_score"], st["chain_batches"],
+             st["chain_dp_batches"], _expected_batches(st)[0],
+             st["extract_seconds"], st["chain_seconds"], st["msa_seconds"],
+             st["splice_seconds"]))
+    print("align (a), each kernel's smallest and largest launch of the run "
+          "against its plain version on the same inputs (the smallest timed: "
+          "one call each, CUDA events, plain, kernel, kernel, plain): %s"
+          % _held_line(errs))
+    script = run_align_script(fastas, os.path.join(workdir, "align_a_sh"),
+                              dev, files)
+    # the refine stage and its VCF against the CPU's, byte for byte
+    cpu, t_cpu = _refine_cpu(os.path.join(out, "prg.unzipped.gfa"), workdir)
+    for fn, data in cpu.items():
+        if files[fn] != data:
+            raise AssertionError("align (a): %s differs from refine --device "
+                                 "cpu's (%d against %d bytes)"
+                                 % (fn, len(files[fn]), len(data)))
+    print("align (a): prg.unzipped.realigned.gfa (%d bytes) and "
+          "prg.refined.vcf (%d bytes) byte-identical to refine --device cpu "
+          "and variants of the same unzipped GFA; the CPU's refine %.6f s "
+          "(%d bubbles, route %s)"
+          % (len(cpu["prg.unzipped.realigned.gfa"]), len(cpu["prg.refined.vcf"]),
+             t_cpu, refine.LAST_STATS["bubbles"], refine.LAST_STATS["route"]))
+    return {
+        "launches": launches,
+        "held": errs,
+        "seconds": {"e2e": secs, "stages": [(n, s) for n, s, _l, _st
+                                            in watch.stages],
+                    "processes": script},
+        "bubbles": st["bubbles"], "cpu_refine_seconds": t_cpu,
+    }
+
+
+def run_align_script(fastas, outdir, dev, want):
+    """The script ``align`` prints, each line its own process (as a user
+    runs it with ``sh``), timed line by line; its files must be the
+    in-process run's ``want``.  Returns [(line, seconds)]."""
+    import reveal_tpu_torch
+
+    os.makedirs(outdir)
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(reveal_tpu_torch.__file__))
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    script = subprocess.run(
+        [sys.executable, "-m", "reveal_tpu_torch.cli", "align", *fastas,
+         "--device", dev, "-o", "prg"], check=True, capture_output=True,
+        text=True, cwd=outdir, env=env).stdout
+    timed = []
+    t_all = time.perf_counter()
+    for line in script.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        t0 = time.perf_counter()
+        subprocess.run(line.replace("python -m", sys.executable + " -m", 1),
+                       shell=True, check=True, cwd=outdir, env=env,
+                       stderr=subprocess.DEVNULL)
+        timed.append((line.split()[3], time.perf_counter() - t0))
+    total = time.perf_counter() - t_all
+    got = {fn: _read(os.path.join(outdir, fn))
+           for fn in sorted(os.listdir(outdir))}
+    if got != want:
+        raise AssertionError("align (a): the script's files differ from "
+                             "the in-process run's: %s"
+                             % [f for f in want if got.get(f) != want[f]])
+    print("align (a) as its printed script, one process a line (%d lines): "
+          "%s; %.6f s in all; the same files as align --run"
+          % (len(timed), ", ".join("%s %.6f s" % t for t in timed), total))
+    return timed
+
+
+def run_align_b(seed, workdir, dev="cuda", other="cpu"):
+    """Phase 7 (b): ``align --run --order sequential --chunksize 2`` on
+    ``ALIGN_SEQUENTIAL`` genomes on the card and on the CPU: every file
+    equal in bytes; on the card the pair chunks launch the repair pass
+    once a pass and the ``.gfa`` level runs the per-level frontier."""
+    n, length = ALIGN_SEQUENTIAL
+    fastas, total_bp, want = write_population(n, length, seed, workdir)
+    opts = ("--order", "sequential", "--chunksize", "2")
+    runs = {}
+    for d in (dev, other):
+        runs[d] = _run_align(fastas, os.path.join(workdir, "align_b_" + d),
+                             d, opts)
+    watch, secs, launches, files = runs[dev]
+    cpu_files = runs[other][3]
+    if sorted(files) != sorted(ALIGN_FILES) or files != cpu_files:
+        raise AssertionError(
+            "align (b): files %s on %s, %s on %s; differing: %s"
+            % (sorted(files), dev, sorted(cpu_files), other,
+               [f for f in files if files[f] != cpu_files.get(f)]))
+    rems = [s for s in watch.stages if s[0] == "rem"]
+    if len(rems) != 3:
+        raise AssertionError("align (b): %d rem stages" % len(rems))
+    passes = 0
+    for _n, _s, lau, st in rems[:2]:
+        f = st["forest"]
+        if f.get("abort") != 0 or not (
+                lau["repair_pass"] == f["repair_launches"]
+                == f["repair_rounds_total"] > 0):
+            raise AssertionError("align (b): a pair chunk's forest: %r, "
+                                 "launches %r" % (f, lau))
+        passes += lau["repair_pass"]
+    last = rems[2]
+    if not last[3]["frontier"].get("levels", 0) > 0 or (
+            last[2]["repair_pass"] or last[2]["window_resolve"]):
+        raise AssertionError("align (b): the .gfa level: %r, launches %r"
+                             % (last[3]["frontier"], last[2]))
+    st = [s for s in watch.stages if s[0] == "refine"][0]
+    _check_refine_stats(st[3]["refine"], {"fwd": st[2]["fwd"],
+                                          "bwd": st[2]["bwd"],
+                                          "mea": st[2]["mea_score"]},
+                        "align (b) refine",
+                        "chain" if dev == "cuda" else "two-phase")
+    _check_paths(os.path.join(workdir, "align_b_" + dev,
+                              "prg.unzipped.realigned.gfa"), want)
+    errs = watch.hold("align (b)")
+    if sorted(errs) != sorted(("repair_pass",) + _PipelineWatch.KERNELS[1:]):
+        raise AssertionError("align (b): kernels held: %s" % sorted(errs))
+    print("align (b) (%d x %d bp, --order sequential --chunksize 2): every "
+          "file equal on %s and %s (%s); pair chunks: repair_pass %d "
+          "launches = passes; the .gfa level on the per-level frontier (%d "
+          "levels); refine: %d bubbles, forward %d, backward %d, mea_score "
+          "%d; kernels against plain: %s"
+          % (n, length, dev, other,
+             ", ".join("%s %d B" % (f, len(files[f])) for f in ALIGN_FILES),
+             passes, last[3]["frontier"]["levels"],
+             st[3]["refine"]["bubbles"], launches["fwd"], launches["bwd"],
+             launches["mea_score"],
+             _held_line(errs)))
+    print("align (b) stages on %s: %s" % (dev, _stage_line(watch, secs)))
+    print("align (b) stages on %s: %s" % (other, _stage_line(*runs[other][:2])))
+    return {"repair_pass": passes, "launches": launches, "seconds": secs,
+            "cpu_seconds": runs[other][1],
+            "held": errs}
+
+
+def run_align(seed, workdir, case=None, dev="cuda", other="cpu"):
+    """Phase 7.  ``case`` is phase 5c (a)'s (fastas, host-engine GFA,
+    {record: sequence}); without it the genomes are written and the host
+    engine run here.  ``dev`` and ``other`` are the devices under test
+    and compared with (``cpu`` for both rehearses the phase on a host
+    without a card)."""
+    if case is None:
+        _label, n, length, _split = MULTI_CASES[0]
+        fastas, _bp, want = write_population(n, length, seed, workdir)
+        gfa = os.path.join(workdir, "host_align.gfa")
+        t = host_gfa(fastas, gfa)
+        print("align (a): the host engine's GFA of %d x %d bp in %.6f s"
+              % (n, length, t))
+        case = (fastas, gfa, want)
+    a = run_align_a(case, workdir, dev)
+    b = run_align_b(seed, workdir, dev, other)
+    return a, b
+
+
 def run_rem_then_refine(rem_gfa, workdir, t_rem):
     """``refine --all --minsize 2`` on the GFA ``rem`` wrote."""
     from reveal_tpu_torch.core.io_gfa import read_gfa
@@ -2680,14 +3303,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
     ap.add_argument("--only", choices=["kernels", "profile", "multi",
-                                       "frontier", "single"],
+                                       "frontier", "single", "align"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
                          "'profile': phases 1-2 and 5b only; 'multi': "
                          "phases 1-2, window-resolve and 5c; 'frontier': "
                          "phases 1-2 and 5d; 'single': phases 1-2 and 5e; "
-                         "each prints no result lines")
+                         "'align': phases 1-2 and 7; each prints no result "
+                         "lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
                          "parent's, to time it beside this one)")
@@ -2736,6 +3360,10 @@ def main(argv=None):
     print_ptxas(build.ptxas_report())
 
     with tempfile.TemporaryDirectory(dir=REPO, prefix=".smoke_") as wd:
+        if args.only == "align":
+            run_align(args.seed, wd)
+            print("chip_smoke --only align: phases 1-2 and 7 passed")
+            return
         fastas, total_bp = write_genomes(args.seed, args.length, wd)
         if args.only == "profile":
             profile_forest(fastas, total_bp, wd,
@@ -2756,18 +3384,27 @@ def main(argv=None):
             run_single(args.seed, wd)
             print("chip_smoke --only single: phases 1-2 and 5e passed")
             return
+        def done(phase):
+            print("chip_smoke: %s done, %.1f s since the start"
+                  % (phase, time.perf_counter() - t0))
+
         rows = [check_window_resolve(dev)] + check_pairhmm(dev)
         rows.append(check_repair(fastas, wd))
         rows.append(check_mea_score(dev))
         check_against_native(dev, args.seed)
+        done("phases 1-4")
         if args.only == "kernels":
             print("chip_smoke --only kernels: phases 1-4 passed")
             return
         rem_launches, rem_gfa, t_rem = run_rem(fastas, total_bp, wd)
         profile_forest(fastas, total_bp, wd, "this checkout:")
-        multi = run_multi(args.seed, wd)
+        done("phase 5-5b")
+        case_a, multi = run_multi(args.seed, wd)
+        done("phase 5c")
         run_frontier(args.seed, wd)
+        done("phase 5d")
         single = run_single(args.seed, wd)
+        done("phase 5e")
         launches, two_phase_batches, scans = run_refine(args.seed, wd)
         run_refine_options(args.seed, wd)
         main_scans = [dict(time_mea(p, nrows, 10), launches=n)
@@ -2775,7 +3412,11 @@ def main(argv=None):
         del scans
         relax = time_relaxation(dev)
         run_mixed(args.seed, wd)
+        done("phase 6-6b")
         run_rem_then_refine(rem_gfa, wd, t_rem)
+        done("phase 6c")
+        align_a, align_b = run_align(args.seed, wd, case_a)
+        done("phase 7")
     # window-resolve runs the multi loop's repair rounds (case a's
     # launches and times at its shapes); it is off the pairwise rem path,
     # whose repair passes run csrc/repair_pass.cu (run_rem checked 0
@@ -2803,6 +3444,29 @@ def main(argv=None):
                                          "bound_latency_ms")})
     rows[4]["main_path_shapes"] = main_scans
     rows[4]["relaxation_products"] = relax
+    # the main path of this slice: align --run (phase 7); each row keeps
+    # the launches of every path it lies on, and its smallest and largest
+    # launch of the align run held against plain
+    la, lb = align_a["launches"], align_b["launches"]
+    for row, key, earlier in (
+            (rows[0], "window_resolve", {"rem, 6 x 100 kbp (5c a)":
+                                         rows[0]["launches"]}),
+            (rows[1], "fwd", {"refine, 72 bubbles (6)": launches["fwd"]}),
+            (rows[2], "bwd", {"refine, 72 bubbles (6)": launches["bwd"]}),
+            (rows[3], "repair_pass", {"rem, 2 x 2 Mbp (5)": rem_launches,
+                                      "single-root loop (5e a)":
+                                      single["launches"]}),
+            (rows[4], "mea_score", {"refine, 72 bubbles (6)":
+                                    launches["mea"]})):
+        row["paths"] = dict(earlier, **{
+            "align --run, 6 x 100 kbp (7a)": la[key],
+            "align --run --order sequential, 4 x 50 kbp (7b)": lb[key]})
+        row["launches"] = la[key] if key != "repair_pass" else lb[key]
+        held = (align_a if key != "repair_pass" else align_b)["held"][key]
+        row["align_held"] = {
+            which: {"shape": shape, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms}
+            for which, (err, shape, ms, plain_ms) in held.items()}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "reveal_tpu")]
     if loaded:

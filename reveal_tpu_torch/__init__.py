@@ -34,14 +34,30 @@ Covered so far:
   with them the MEA distances and the consistency transform of every
   bubble under the chain's size cap; ``--logadd-compat``, ``--method``
   (external aligners, ``reveal_rem``) and ``--nproc`` run on the host as
-  in ``reveal_tpu``.
+  in ``reveal_tpu``;
+* ``align``, the pipeline rem -> unzip -> refine -> variants: printed as
+  a script of ``python -m reveal_tpu_torch.cli`` lines, or with ``--run``
+  run in one process, its ``rem`` and ``refine`` stages on ``--device``;
+* every other subcommand of ``reveal_tpu``'s CLI, host code copied whole
+  (``graph/{unzip,varcall,annotate,chop}.py``, ``align/{anchorlog,
+  kdchain}.py``, ``transform/``, ``core/{io_maf,maf2graph}.py``,
+  ``utils/{dformat,falcon2gfa}.py``, ``viz.py``): unzip, variants,
+  bubbles, extract, split, merge, comp, subgraph, stats, chop, annotate,
+  matches, chain, rearrangements, transform, finish, convert, plot and
+  gplot; ``rem --checkpoint`` (the serial LIFO host engine logging its
+  picks) and ``align_genomes(frontier=False)``'s host drivers.
+
+Not covered: the device suffix-array builds (``--backend jax``, ROADMAP
+queue 1 item 4; ``jax-dist``, item 9).
 
 Entry points:
 
 * ``reveal_tpu_torch.align.rem.align_genomes([a.fa, b.gfa, ...], device="cuda")``
 * ``reveal_tpu_torch.hmm.refine.refine_all(G, device="cuda", ...)``
-* ``python -m reveal_tpu_torch.cli rem a.fa b.fa --frontier -o out.gfa``
+* ``python -m reveal_tpu_torch.cli align a.fa b.fa c.fa --run -o prg``
+* ``python -m reveal_tpu_torch.cli rem a.fa b.fa -o out.gfa``
 * ``python -m reveal_tpu_torch.cli refine g.gfa --all -o out.gfa``
+* ``python -m reveal_tpu_torch.cli <subcommand> -h`` for the rest
 """
 
 

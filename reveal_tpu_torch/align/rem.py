@@ -32,7 +32,11 @@ decline is logged and recorded in ``LAST_STATS["fallback"]`` of
 to the serial host engine or to the CPU.  ``align_genomes_host`` and
 ``align_seqs_host`` run the serial host engine alone: the reference the
 device paths are held to, and ``refine --method reveal_rem``'s aligner.
-Inputs the port does not cover raise ``NotImplementedError``.
+``align_genomes(..., frontier=False)`` runs the reference's host drivers
+when asked for: the serial LIFO loop, the level-synchronous
+``_align_loop_levels`` (``threads > 0``) and, with ``checkpoint``, the
+LIFO loop logging its picks to an ``align/anchorlog.AnchorLog``.
+The device suffix-array builds raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -613,6 +617,135 @@ def _align_loop(
     return steps
 
 
+def _align_loop_levels(
+    G: PanGraph,
+    t: IntervalIndex,
+    root: ESAIndex,
+    cfg: PickerConfig,
+    threads: int,
+):
+    """Host level-synchronous parallel recursion (the reference's
+    `rem -t/--threads`, reveal.py:76 / interface.c:338-359 — but
+    deterministic: its pthread pool races on queue order, so node ids
+    vary run to run; here the output is independent of thread count).
+
+    Each level runs three phases, exactly the device frontier's
+    semantics (_align_loop_frontier):
+
+    1. enumerate + pick for every segment — parallel, read-only (the
+       native scans and pick DPs release the GIL);
+    2. graph surgery per picked segment — serial, in level order;
+    3. 3-way split + matched-text lowercase + boundary repair —
+       parallel: each job mutates only its own SA/LCP slices, its own
+       suffixes' SAi entries and its own matched text intervals, all
+       disjoint across same-level segments.
+
+    Phase 1 runs before any phase-3 lowercase of the same level, so
+    every segment's enumeration sees the text state of the previous
+    level boundary — the property the frontier equivalence tests pin
+    down (tests/test_frontier.py).
+
+    Throughput note: the per-segment native kernels scale ~3x across 4
+    threads in isolation, but each carries Python marshalling that
+    serializes on the GIL, and the level layout forgoes the serial
+    loop's fused cache-hot child enumeration (split3_repair_enum) — on
+    the 4-vCPU image this nets out to roughly break-even with the
+    serial LIFO loop.  The flag exists for reference CLI parity and for
+    wider hosts where the native fraction amortizes the glue."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    picker = MumPicker(G, t, cfg)
+    if not os.environ.get("REVEAL_TPU_DISABLE_FASTPICK"):
+        picker.set_fastmap(root.nodes)
+        if picker.fastmap is not None:
+            # warm the picker's lazy caches (_nsid/_id2end_arr) before
+            # concurrent picking starts
+            picker._boundary_arrays(root)
+
+    def do_split(job):
+        idx, splitmum, result, skipleft, skipright = job
+        leading, trailing, matching, rest, merged, newleft, newright = result
+        l, n, spd = splitmum
+        sp_positions = [p for gid, p in spd]
+        return idx.split_segments(
+            leading,
+            trailing,
+            matching,
+            rest,
+            sp_positions,
+            l,
+            newleft,
+            newright,
+            skipleft=skipleft,
+            skipright=skipright,
+        )
+
+    def run_sliced(ex, fn, items, nworkers):
+        """Apply fn to items in order, splitting the level into at most
+        nworkers contiguous slices (one future per slice: per-item
+        futures cost more in scheduling than the native work saves).
+        Narrow levels run inline."""
+        n = len(items)
+        out = [None] * n
+        if n < 2 * nworkers:
+            for i, it in enumerate(items):
+                out[i] = fn(it)
+            return out
+        step = (n + nworkers - 1) // nworkers
+
+        def run_slice(lo):
+            hi = min(lo + step, n)
+            for i in range(lo, hi):
+                out[i] = fn(items[i])
+
+        futs = [
+            ex.submit(run_slice, lo) for lo in range(0, n, step)
+        ]
+        for f in futs:
+            f.result()
+        return out
+
+    level = [root]
+    steps = 0
+    levels = 0
+    with ThreadPoolExecutor(max_workers=max(threads, 1)) as ex:
+        while level:
+            levels += 1
+            picks = run_sliced(
+                ex,
+                lambda idx: _enum_pick(picker, idx, cfg),
+                level,
+                threads,
+            )
+            jobs = []
+            for idx, pick in zip(level, picks):
+                if not pick:
+                    continue
+                splitmum, skipleft, skipright = pick
+                result = graphalign(G, t, idx, splitmum)
+                jobs.append((idx, splitmum, result, skipleft, skipright))
+                steps += 1
+            level = []
+            for lead_idx, trail_idx, par_idx in run_sliced(
+                ex, do_split, jobs, threads
+            ):
+                # child order mirrors the push order parallel, leading,
+                # trailing (reveal.c:1295-1324)
+                if par_idx is not None:
+                    level.append(par_idx)
+                if lead_idx is not None:
+                    level.append(lead_idx)
+                if trail_idx is not None:
+                    level.append(trail_idx)
+    log.debug(
+        "threaded alignment: %d anchor steps in %d levels (threads=%d)",
+        steps,
+        levels,
+        threads,
+    )
+    return steps
+
+
 def read_fasta_into(
     fasta: str,
     ts: TextStore,
@@ -1095,10 +1228,12 @@ def _align_loop_frontier(
     return steps
 
 
-def _read_inputs(inputfiles: List[str], multi: bool = False):
+def _read_inputs(inputfiles: List[str], multi: bool = False,
+                 contigs: bool = True):
     """Fasta and ``.gfa``/``.gfa.gz`` inputs -> (text store, interval
     index, graph, root nodes), as ``reveal_tpu.align.rem.align_genomes``
-    reads them (rem.py:1197-1217): a ``MultiPanGraph`` with ``multi``."""
+    reads them (rem.py:1197-1217): a ``MultiPanGraph`` with ``multi``;
+    ``contigs=False`` makes every fasta record a sample of its own."""
     ts = TextStore()
     t = IntervalIndex()
     G = MultiPanGraph() if multi else PanGraph()
@@ -1108,7 +1243,7 @@ def _read_inputs(inputfiles: List[str], multi: bool = False):
             ts.add_sample(os.path.basename(sample))
             read_gfa_into(sample, ts, t, G, root_nodes)
         else:
-            read_fasta_into(sample, ts, t, G, root_nodes)
+            read_fasta_into(sample, ts, t, G, root_nodes, contigs=contigs)
     if ts.nsamples <= 1:
         raise ValueError(
             "Specify at least 2 targets to construct an alignment."
@@ -1119,26 +1254,60 @@ def _read_inputs(inputfiles: List[str], multi: bool = False):
 def align_genomes(
     inputfiles: List[str],
     device="cuda",
-    frontier: bool = True,
+    contigs: bool = True,
+    backend: str = "native",
+    safile=None,
+    lcpfile=None,
+    cache: bool = False,
     multi: bool = False,
+    frontier: bool = True,
+    threads: int = 0,
+    checkpoint: Optional[str] = None,
     **cfgkw,
 ):
-    """Alignment of two or more fasta or ``.gfa`` files -> (G, idx), the
-    recursion on ``device``.  Mirrors ``reveal_tpu.align.rem.align_genomes(
-    inputfiles, multi=multi, frontier=True)``: three or more samples take
-    the multi-genome device loop, a plain pair the host prefix and device
+    """Alignment of two or more fasta or ``.gfa`` files -> (G, idx).
+    Mirrors ``reveal_tpu.align.rem.align_genomes`` (rem.py:1174-1244).
+    With ``frontier`` (the default here, and the CLI's route) the
+    recursion runs on ``device``: three or more samples take the
+    multi-genome device loop, a plain pair the host prefix and device
     forest, every other input (and every decline of the multi loop) the
-    per-level device frontier; ``multi`` builds the parallel-edge graph
-    (``MultiPanGraph``); ``cfgkw`` are ``PickerConfig`` fields."""
+    per-level device frontier.  ``frontier=False`` runs the reference's
+    host drivers on the host: ``threads > 0`` the level-synchronous
+    ``_align_loop_levels``, else the serial LIFO ``_align_loop``;
+    ``checkpoint`` (which needs ``frontier=False`` and no threads, as in
+    the reference) logs every pick of the LIFO loop to that file and
+    resumes from it.  ``device`` is checked on every route.  ``backend``
+    is the host suffix-array build (``build_esa``), ``safile``/
+    ``lcpfile`` load one and ``cache`` writes it; ``multi`` builds the
+    parallel-edge graph (``MultiPanGraph``); ``cfgkw`` are
+    ``PickerConfig`` fields."""
     dev = resolve_device(device)
-    if not frontier:
-        raise _not_covered("the serial LIFO engine (no --frontier)", "10")
-    ts, t, G, root_nodes = _read_inputs(inputfiles, multi)
-    # "native", not "auto": a failed native build raises instead of
-    # quietly switching to the numpy suffix sort
-    idx = ESAIndex.construct(ts, backend="native")
+    ts, t, G, root_nodes = _read_inputs(inputfiles, multi, contigs)
+    idx = ESAIndex.construct(ts, backend=backend,
+                             safile=safile, lcpfile=lcpfile, cache=cache)
     idx.nodes = root_nodes
-    _align_frontier(G, t, idx, PickerConfig(**cfgkw), dev)
+    cfg = PickerConfig(**cfgkw)
+    if checkpoint:
+        if frontier or (threads and threads > 0):
+            raise ValueError(
+                "checkpoint/resume requires the serial LIFO driver "
+                "(drop --frontier/--threads)"
+            )
+        from .anchorlog import AnchorLog, text_fingerprint
+
+        log.info("checkpoint %s: the serial LIFO host engine, the one "
+                 "route that can resume", checkpoint)
+        alog = AnchorLog(checkpoint, text_fingerprint(idx.main.T), cfg)
+        try:
+            _align_loop(G, t, idx, cfg, anchor_log=alog)
+        finally:
+            alog.close()
+    elif frontier:
+        _align_frontier(G, t, idx, cfg, dev)
+    elif threads and threads > 0:
+        _align_loop_levels(G, t, idx, cfg, threads)
+    else:
+        _align_loop(G, t, idx, cfg)
     return G, idx
 
 

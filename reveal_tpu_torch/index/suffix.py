@@ -123,24 +123,28 @@ def sufcheck(T: np.ndarray, SA: np.ndarray) -> bool:
     return bool(np.all(rank[SA] == np.arange(n)))
 
 
+def check_backend(backend: str) -> None:
+    """Raise for the device suffix-array builds, which are not ported."""
+    if backend == "jax":
+        raise _not_covered("the device suffix-array build (backend 'jax')",
+                           "4")
+    if backend == "jax-dist":
+        raise _not_covered("the distributed suffix-array build (backend "
+                           "'jax-dist')", "9")
+
+
 def build_esa(T_np: np.ndarray, backend: str = "auto"):
     """(SA, LCP, SAi) with backend in {'auto','native','np'}.
 
     Backends: 'native' = C++ SA-IS + capped Kasai (the host path the
-    port's entry points use); 'np' = pure-numpy oracle.  'auto' prefers
-    native, then numpy.  The device routes ('jax', 'jax-dist') are not
-    ported.
+    port's entry points use); 'np' = pure-numpy oracle.  'auto' means
+    native.  The device routes ('jax', 'jax-dist') are not ported.
     """
-    if backend in ("jax", "jax-dist"):
-        raise _not_covered("the device suffix-array build (backend %r)"
-                           % backend, "4")
+    check_backend(backend)
     if backend == "auto":
-        try:
-            from ..native import build_esa_native
-
-            return build_esa_native(T_np)
-        except Exception:
-            return build_esa(T_np, backend="np")
+        # "native", not native-then-numpy: a failed native build raises
+        # instead of quietly switching to the numpy suffix sort
+        backend = "native"
     if backend == "native":
         from ..native import build_esa_native
 

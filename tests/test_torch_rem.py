@@ -158,12 +158,16 @@ def _three_fastas(tmp_path):
 
 
 def test_uncovered_inputs_raise(tmp_path):
-    """Only the serial host engine as a route (no ``--frontier``, item 10)
-    is left uncovered; graph inputs, multi-contig pairs and ``--notrim``
-    take the per-level frontier (tests/test_torch_frontier_routes.py)."""
+    """Only the device suffix-array builds (``--backend jax``, item 4;
+    ``jax-dist``, item 9) are left uncovered; the serial host engine (no
+    ``--frontier``, once item 10) runs as in the reference
+    (tests/test_torch_align.py), and graph inputs, multi-contig pairs and
+    ``--notrim`` take the per-level frontier
+    (tests/test_torch_frontier_routes.py)."""
     fa = _three_fastas(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_rem.align_genomes(fa[:2], device="cpu", frontier=False)
+    for backend, item in (("jax", "4"), ("jax-dist", "9")):
+        with pytest.raises(NotImplementedError, match="item %s\\)" % item):
+            port_rem.align_genomes(fa[:2], device="cpu", backend=backend)
     with pytest.raises(ValueError):
         port_rem.align_genomes(fa[:1], device="cpu")
 

@@ -91,14 +91,14 @@ assert not any(m in ("jax", "reveal_tpu")
 """
 
 
-def _run_blocked(args):
+def _run_blocked(args, cwd=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
     )
     return subprocess.run(
         [sys.executable, "-c", _BLOCKED, *args],
-        capture_output=True, text=True, env=env, timeout=600,
+        capture_output=True, text=True, env=env, timeout=600, cwd=cwd,
     )
 
 
@@ -132,6 +132,22 @@ def test_rem_cli_runs_with_jax_and_reveal_tpu_blocked(tmp_path):
     assert os.path.getsize(out) > 20_000
 
 
+def test_align_run_with_jax_and_reveal_tpu_blocked(tmp_path):
+    """The whole pipeline (rem, unzip, refine, three variants calls) in
+    one process that cannot import jax or reveal_tpu."""
+    fastas = []
+    for name, seq, _ids in simulate_population(3, 3_000, seed=4):
+        fn = str(tmp_path / (name + ".fa"))
+        fasta_writer(fn, [(name, seq)])
+        fastas.append(fn)
+    proc = _run_blocked(["align", *fastas, "--run", "--device", "cpu",
+                         "-o", "prg"], cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for ext in ("gfa", "unzipped.gfa", "unzipped.realigned.gfa",
+                "anchored.vcf", "unzipped.vcf", "refined.vcf"):
+        assert (tmp_path / ("prg." + ext)).stat().st_size > 0, ext
+
+
 # --------------------------------------------------------------------------
 # (c) the copies equal their originals
 # --------------------------------------------------------------------------
@@ -142,7 +158,12 @@ WHOLE_FILES = [
     "native/__init__.py", "align/graphops.py", "align/chaining.py",
     "align/picker.py", "graph/bubbles.py", "graph/extract.py",
     "graph/simplify.py", "hmm/refinelog.py", "index/esa_index.py",
-    "hmm/compat.py",
+    "hmm/compat.py", "graph/unzip.py", "graph/varcall.py",
+    "graph/annotate.py", "graph/chop.py", "align/anchorlog.py",
+    "align/kdchain.py", "transform/__init__.py", "transform/blocks.py",
+    "transform/driver.py", "transform/finish.py", "core/io_maf.py",
+    "core/maf2graph.py", "utils/dformat.py", "utils/falcon2gfa.py",
+    "viz.py",
 ]
 
 # lines of a whole-file copy that differ: (only in the original, only in
@@ -160,6 +181,25 @@ WHOLE_FILE_CHANGES = {
             "    )",
         ],
         ['    d = os.path.join(os.path.dirname(_HERE), "build")'],
+    ),
+    "utils/dformat.py": (  # the module's own run line
+        ["Run: python -m reveal_tpu.utils.dformat reads.fa > formatted.fa"],
+        ["Run: python -m reveal_tpu_torch.utils.dformat reads.fa > "
+         "formatted.fa"],
+    ),
+    # the module's own run line; --align runs the port's aligner on the
+    # device given (the card unless --device cpu)
+    "utils/falcon2gfa.py": (
+        ["Run: python -m reveal_tpu.utils.falcon2gfa p_ctg.fa a_ctg_base.fa "
+         "a_ctg_all.fa",
+         "        G, idx = align_seqs(aobjs, minlength=args.minlength)"],
+        ["Run: python -m reveal_tpu_torch.utils.falcon2gfa p_ctg.fa "
+         "a_ctg_base.fa a_ctg_all.fa",
+         '    parser.add_argument("--device", default="cuda",',
+         '                        help="Torch device of --align: cuda or '
+         'cpu.")',
+         "        G, idx = align_seqs(aobjs, minlength=args.minlength,",
+         "                            device=args.device)"],
     ),
 }
 
@@ -190,8 +230,8 @@ COPIED = {
     "align.rem": [
         "graphalign", "_enum_pick", "_pairwise_fast_eligible",
         "_rem2_native_loop", "_rem2_replay_native", "_rem2_replay",
-        "_align_loop", "read_fasta_into", "_multi_fast_eligible",
-        "_rem_multi_replay"],
+        "_align_loop", "_align_loop_levels", "read_fasta_into",
+        "_multi_fast_eligible", "_rem_multi_replay"],
     # "port module:original module" where the port moved a function
     "index.devloop_multi:index.devloop": ["forest_pop_order_multi"],
     "utils.simulate": ["mutate", "simulate_population"],
@@ -209,6 +249,13 @@ COPIED = {
         "_mp_run_job", "_external_msa", "build_column_graph", "prepare_bubble_alleles",
         "replace_bubble", "select_realign_bubbles",
         "collect_bubble_aobjs"],
+    # the subcommands that run host code only
+    "cli": [
+        "bubbles_cmd", "variants_cmd", "unzip_cmd", "extract_cmd",
+        "split_cmd", "merge_cmd", "comp_cmd", "subgraph_cmd", "stats_cmd",
+        "chop_cmd", "transform_cmd", "finish_cmd", "convert_cmd",
+        "rearrangements_cmd", "chain_cmd", "annotate_cmd", "plot_cmd",
+        "gplot_cmd", "matches_cmd"],
 }
 
 
@@ -233,7 +280,8 @@ def test_copied_function_equals_original(mod, name):
 # "x|y" is a line x followed by a line y.  A name "port:original" holds a
 # port function to an original of another name.
 CHANGED = {
-    # only the native and numpy routes; the device routes raise
+    # only the native and numpy routes; the device routes raise, and
+    # 'auto' is native with no numpy fallback
     ("index.suffix", "build_esa"): [
         ('"""(SA, LCP, SAi) with backend in '
          "{'auto','jax','jax-dist','np'}.",
@@ -242,6 +290,8 @@ CHANGED = {
         ('if backend == "jax-dist":', "T_np, make_mesh(), "
          "lcp_ckpt_stride=stride"),
         (")",) * 2,
+        ("try:|from ..native import build_esa_native",
+         'return build_esa(T_np, backend="np")'),
         ("try:|return build_esa_jax(T_np)",
          'return build_esa(T_np, backend="np")'),
     ],
@@ -289,8 +339,33 @@ CHANGED = {
         ("for i, (_w, _se, pm, _pd, pmsa) in enumerate(jobs)",
          "if pm is not None or pmsa is not None or posteriors"),
     ],
-    # the device option, and the output path returned
+    # the device option
     ("cli", "refine_cmd"): [],
+    # the device option; the device route unless --checkpoint asks for
+    # the host LIFO loop
+    ("cli", "rem_cmd"): [
+        ("frontier=args.frontier,",) * 2,
+    ],
+    # the port's prefix; --device at the end of every rem and refine line
+    ("cli", "align_cmd"): [
+        ('"""Emit the meta-pipeline shell script',
+         'in-process instead of printing it."""'),
+        ('prog = "python -m reveal_tpu.cli"',) * 2,
+        ('"%s rem %s -o %s.gfa%s%s\\n"',
+         '% (prog, " ".join(chunk), args.output, ck, amp)'),
+        ('"%s rem %s -o %s.gfa%s%s\\n"',
+         '% (prog, " ".join(chunk), tmp, ck, amp)'),
+        ('"%s rem %s -m%d -o %s.gfa%s\\n"',
+         '% (prog, " ".join(graphs), args.minlength, args.output, ck)'),
+        ('"--mindiff=0 --minconf=%d%s -o %s.unzipped.realigned.gfa\\n"',
+         "% (prog, args.output, args.minconf, ck, args.output)"),
+    ],
+    # the port's prefix, and its main
+    ("cli", "_run_pipeline_script"): [
+        ('"""Execute an emitted align pipeline in ONE process',
+         'jobs run serially in-process)."""'),
+        ('assert toks[:3] == ["python", "-m", "reveal_tpu.cli"], (',) * 2,
+    ],
     # the loop runs on a device given; no environment switch; the root's
     # multiMUM count is computed, not guessed when it fails
     ("align.rem", "_rem_device_multi_loop"): [
