@@ -1,7 +1,7 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi|frontier|single|align]
+                          [--only kernels|profile|multi|frontier|single|align|esa]
                           [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
@@ -9,7 +9,7 @@ and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
 phases 1-2, the window-resolve checks of phase 3 and phase 5c;
 ``--only frontier`` phases 1-2 and 5d; ``--only single`` phases 1-2 and
-5e; ``--only align`` phases 1-2 and 7.
+5e; ``--only align`` phases 1-2 and 7; ``--only esa`` phases 1-2 and 8.
 ``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
 instead of this one (with ``--only profile``: the parent's forest timed
 beside this one's, in turns, on one card in one go).
@@ -84,13 +84,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the same pair; the loop again with a synchronised clock around its
    stages, under ``torch.profiler`` (launches, host syncs, busy share,
    peak memory; ``chain_flat``'s calls, rounds, launches, host syncs and
-   device time apart), and with every repair pass held against its plain
-   version (plain, kernel, kernel, plain; exact); (b) 2 x 1 Mbp under
+   device time apart); (b) 2 x 1 Mbp under
    mode full: the loop aborts with ``ABORT_CHAIN_ROUNDS`` at level 0 (at
    seed 1) and the per-level frontier takes the pair, node state and text
    against the host engine's; (c) 2 x 200 kbp by the default route with
    the forest stood in to decline: the loop takes it, GFA bytes against
-   the host engine's;
+   the host engine's, then again with every repair pass held against its
+   plain version (plain, kernel, kernel, plain; exact);
 6. ``refine``: a six-path chain of bubbles (64 with alleles near 500 bp,
    8 near 1900 bp, 10-15% substitutions and indels up to 12 bp between
    alleles) written from ``--seed``, through ``cli refine --all
@@ -139,7 +139,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    50_000, seed)`` on the card and on the CPU: every file equal in bytes,
    the pair chunks on the forest (one repair-pass launch a pass, the
    smallest and largest passes held against plain), the ``.gfa`` level on the per-level
-   frontier.
+   frontier;
+8. the device suffix-array build (``--backend jax``, ``index/suffix.
+   build_esa_device``: torch code, no kernel of its own) and the device
+   MUM scans: (a) on the roots of ``simulate_population(n, L, seed)`` at
+   6 x 100 kbp, 2 x 2 Mbp, 6 x 1 Mbp and 2 x 16 Mbp (npad 2^20, 2^22,
+   2^23, 2^25) SA, LCP and SAi exactly the native SA-IS + Kasai's and the
+   suffix order checked in linear time (the first root also through
+   ``sufcheck`` and with ``force64``), with the doubling rounds, the
+   seconds of the rounds, the LCP descent and the copy to the host on a
+   synchronised clock, the peak device memory and the native build's
+   seconds; (b) ``cli rem --frontier --device cuda --backend jax`` on
+   phase 5's pair (the forest) and on 6 x 100 kbp (the multi loop): the
+   default backend's GFA bytes and kernel launches, both timed; (c)
+   ``pairwise_mums_device`` on the device-built 2 x 2 Mbp root and
+   ``frontier_mums`` over two children of it (the interleaved
+   pseudo-segments of ``tests/test_frontier.py`` and the genomes'
+   halves) against the host scans.
 
 Limits: M and G0 cells where kernel and plain are both above LOG_ZERO/2
 agree within 1e-4 * max(L1p, L2p) (float32 at magnitudes that grow with
@@ -1841,9 +1857,9 @@ def run_single_a(fastas, total_bp, workdir):
     """Case (a): the single-root loop takes the pair whole (mode full);
     GFA bytes against the host engine's, one repair launch a pass and no
     window-resolve launch; the default route and the host engine timed on
-    the same input; the loop again with its stages clocked, under
-    ``torch.profiler`` (chain_flat apart) and with every repair pass held
-    against plain.  Returns the repair row's numbers of this path."""
+    the same input; the loop again with its stages clocked and under
+    ``torch.profiler`` (chain_flat apart).  Returns the repair row's
+    numbers of this path."""
     import torch
 
     from reveal_tpu_torch.index import devloop, repair
@@ -1934,12 +1950,7 @@ def run_single_a(fastas, total_bp, workdir):
                   "%.6f ms a call" % (key[:90], us / 1e6, count,
                                       us / 1e3 / count))
 
-    held_passes, worst = hold_repair_passes(full)
-    if len(held_passes) != passes:
-        raise AssertionError("the held run made %d repair passes, the main "
-                             "run %d" % (len(held_passes), passes))
-    held = repair_summary(held_passes, worst, "the single-root loop (case a)")
-    return dict(held, launches=launches, levels=st["levels"],
+    return dict(launches=launches, levels=st["levels"],
                 dispatches=st["dispatches"], loop_seconds=st["loop_seconds"],
                 chain_rounds=cf["count"],
                 chain_flat_seconds=secs["chain_flat"],
@@ -1988,7 +1999,9 @@ def run_single_b(fastas, total_bp, want, workdir):
 def run_single_c(fastas, total_bp, workdir):
     """Case (c): the default route with the forest stood in to decline
     (ABORT_DUP_REF, as the CPU tests do): the single-root loop takes the
-    pair on the card, with the host engine's GFA bytes."""
+    pair on the card, with the host engine's GFA bytes; then again with
+    every repair pass held against plain (``hold_repair_passes``).
+    Returns the held passes' numbers."""
     from reveal_tpu_torch.index import devloop, repair
 
     _state, _T, host_bytes, t_host = host_reference(
@@ -2000,12 +2013,15 @@ def run_single_c(fastas, total_bp, workdir):
         devloop.LAST_STATS.clear()
         devloop.LAST_STATS["abort"] = devloop.ABORT_DUP_REF
 
-    devloop.rem_device_forest = declines
+    def run():
+        devloop.rem_device_forest = declines
+        try:
+            return _single_cli(fastas, out, None)
+        finally:
+            devloop.rem_device_forest = forest
+
     repair.LAUNCHES = 0
-    try:
-        _seen, t_e2e = _single_cli(fastas, out, None)
-    finally:
-        devloop.rem_device_forest = forest
+    _seen, t_e2e = run()
     st = dict(devloop.LAST_STATS)
     why = "forest: kernel abort code 4 (ABORT_DUP_REF)"
     if (st.get("fallback") != why or st.get("abort") != 0
@@ -2020,20 +2036,27 @@ def run_single_c(fastas, total_bp, workdir):
           % (total_bp // 2, st["fallback"], st["levels"],
              st["repair_rounds_total"], repair.LAUNCHES, st["loop_seconds"],
              t_e2e, len(host_bytes), t_host))
+    held_passes, worst = hold_repair_passes(run)
+    if len(held_passes) != st["repair_rounds_total"]:
+        raise AssertionError("the held run made %d repair passes, the main "
+                             "run %d" % (len(held_passes),
+                                         st["repair_rounds_total"]))
+    return repair_summary(held_passes, worst, "the single-root loop (case c)")
 
 
 def run_single(seed, workdir):
     """Phase 5e: cases (a)-(c).  Returns the repair row's numbers of the
-    single-root path (case a)."""
-    out = None
+    single-root path: case (a)'s, with the passes of case (c) held against
+    plain under ``held``."""
+    out = {}
     for label, length in SINGLE_CASES:
         fastas, total_bp, want = write_population(2, length, seed, workdir)
         if label == "a":
-            out = run_single_a(fastas, total_bp, workdir)
+            out.update(run_single_a(fastas, total_bp, workdir))
         elif label == "b":
             run_single_b(fastas, total_bp, want, workdir)
         else:
-            run_single_c(fastas, total_bp, workdir)
+            out["held"] = run_single_c(fastas, total_bp, workdir)
     return out
 
 
@@ -2907,8 +2930,45 @@ class _PipelineWatch:
                                      % (label, name, which, err, shape))
             errs.setdefault(name, {})[which] = (err, shape) + (
                 self._times(name, args) if which == "smallest"
-                else (None, None))
+                else (None, None)) + self._bound(name, args, out)
         return errs
+
+    @staticmethod
+    def _bound(name, args, out):
+        """(bound ms, bound_by) of a kept launch, reckoned as the
+        kernels line reckons its rows: window-resolve by its windows'
+        bytes; the DP kernels by 14 exp/log a cell within lx x ly (the
+        forward's ly is the columns before its '~' padding, class 5);
+        ``mea_score`` by ``_mea_bounds``; the repair pass by the bytes of
+        the slots it moved and the candidates it applied (its counters
+        after the launch less before)."""
+        if name == "window_resolve":
+            _lcp, q, _thr, wrv = args
+            by_bytes = (q.numel() * wrv * 4 + 3 * q.numel() * 4) \
+                / HBM_BYTES_PER_S * 1e3
+            by_ops = q.numel() * wrv / F32_OPS_PER_S * 1e3
+        elif name == "mea_score":
+            p, nrows = args
+            bound, by, _floor = _mea_bounds(
+                *p.shape, p.shape[1] if nrows is None else nrows)
+            return bound, by
+        elif name == "repair_pass":
+            before, after = args[8].tolist(), out[3].tolist()
+            nbytes = (24 * (after[2] - before[2])
+                      + 32 * (after[0] - before[0]))
+            return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+        else:
+            xcls, ycls, lx = args[:3]
+            ly = args[3] if name == "bwd" else (ycls[:, 1:] < 5).sum(1)
+            B, L1p = xcls.shape
+            L2p = ycls.shape[1]
+            cells = int(((lx.long() + 1) * (ly.long() + 1)).sum())
+            nbytes = (B * L1p * L2p * 4 + B * 5 * L2p * 4 + B * (L1p + L2p)
+                      + 8 * B + 408)
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = SFU_PER_CELL * cells / SFU_OPS_PER_S * 1e3
+        return (max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations")
 
     def _times(self, name, args):
         """(kernel ms, plain ms) of one call on the kept inputs, from CUDA
@@ -2975,8 +3035,9 @@ def _run_align(fastas, outdir, dev, extra=()):
 
 
 def _held_line(errs):
-    return ", ".join("%s %s %s max |err| %.3e, kernel %s ms, plain %s ms"
-                     % (k, which, v[1], v[0], v[2], v[3])
+    return ", ".join("%s %s %s max |err| %.3e, kernel %s ms, plain %s ms, "
+                     "bound %.6f ms by %s"
+                     % (k, which, v[1], v[0], v[2], v[3], v[4], v[5])
                      for k, launches in sorted(errs.items())
                      for which, v in sorted(launches.items(), reverse=True))
 
@@ -3282,6 +3343,278 @@ def run_rem_then_refine(rem_gfa, workdir, t_rem):
           % (t_rem, secs))
 
 
+# ----------------------------------------------------------------------
+# phase 8: the device suffix-array build and the device MUM scans
+# ----------------------------------------------------------------------
+# (a)'s roots: (label, genomes, bp a genome), padded to 2^20, 2^22, 2^23
+# and 2^25 slots; uncut simulate_population(n, L, seed) texts
+ESA_CASES = (("6 x 100 kbp", 6, 100_000), ("2 x 2 Mbp", 2, 2_000_000),
+             ("6 x 1 Mbp", 6, 1_000_000), ("2 x 16 Mbp", 2, 16_000_000))
+# the MUM scans' minimum length (c)
+ESA_MINL = 20
+
+
+def population_text(n, length, seed):
+    """The root text of ``simulate_population(n, length, seed)``, one
+    sample a genome as ``rem`` reads its fastas: (T, nsep)."""
+    from reveal_tpu_torch.core.textstore import TextStore
+    from reveal_tpu_torch.utils.simulate import simulate_population
+
+    ts = TextStore()
+    for name, seq, _ids in simulate_population(n, length, seed=seed):
+        ts.add_sample(name)
+        ts.add_sequence(seq)
+    T, _so, nsep = ts.build()
+    return T, nsep
+
+
+def suffix_order_holds(T, SA):
+    """Whether SA is the suffix array of T, in linear time: SA is a
+    permutation, and every two neighbours a = SA[i-1], b = SA[i] have
+    (T[a], ISA[a+1]) < (T[b], ISA[b+1]), the empty suffix ranked lowest
+    (Burkhardt and Kaerkkaeinen's check).  ``suffix.sufcheck`` sorts the
+    text again by doubling on the host: 13 s at 4 Mbp on an 8-core CPU,
+    too long for the larger roots."""
+    import numpy as np
+
+    n = len(T)
+    if len(SA) != n or not np.all(np.bincount(SA, minlength=n) == 1):
+        return False
+    isa = np.empty(n + 1, np.int64)
+    isa[SA] = np.arange(n)
+    isa[n] = -1
+    a, b = SA[:-1], SA[1:]
+    ta, tb = T[a], T[b]
+    return bool(np.all((ta < tb) | ((ta == tb) & (isa[a + 1] < isa[b + 1]))))
+
+
+def check_device_esa(seed, dev):
+    """Phase 8 (a): ``build_esa(T, "jax", device=dev)`` against the
+    native SA-IS + Kasai on each root of ``ESA_CASES``: SA, LCP and SAi
+    exactly equal, the suffix order checked; the first root again with
+    ``force64`` (its arrays the int32 build's) and through
+    ``suffix.sufcheck``.  Returns ({label: numbers}, the 2 x 2 Mbp root
+    as (T, nsep, SA, LCP) of the device build)."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch.index import suffix
+
+    cuda = torch.device(dev).type == "cuda"
+    # the first sort of a process sets up its workspace: not timed
+    suffix.build_esa(population_text(2, 30_000, seed)[0], "jax", device=dev)
+    out, root = {}, None
+    for k, (label, n, length) in enumerate(ESA_CASES):
+        t0 = time.perf_counter()
+        T, nsep = population_text(n, length, seed)
+        t_text = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = suffix.build_esa(T, "native")
+        t_native = time.perf_counter() - t0
+        _sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = suffix.build_esa(T, "jax", device=dev)
+        t_dev = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+        st = dict(suffix.LAST_STATS)
+        for name, g, w in zip(("SA", "LCP", "SAi"), got, want):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                bad = np.nonzero(g != w)[0] if g.shape == w.shape else [-1]
+                raise AssertionError(
+                    "device ESA %s: %s differs from the native build's (%s "
+                    "against %s slots; first difference at %d)"
+                    % (label, name, g.shape, w.shape, int(bad[0])))
+        t0 = time.perf_counter()
+        if not suffix_order_holds(T, got[0]):
+            raise AssertionError("device ESA %s: the suffix order does not "
+                                 "hold" % label)
+        t_check = time.perf_counter() - t0
+        extra = ""
+        if k == 0:
+            if not suffix.sufcheck(T, got[0]):
+                raise AssertionError("device ESA %s: sufcheck fails" % label)
+            t0 = time.perf_counter()
+            got64 = suffix.build_esa_device(T, torch.device(dev),
+                                            force64=True)
+            t64 = time.perf_counter() - t0
+            if not suffix.LAST_STATS["int64"] or any(
+                    not np.array_equal(a, b) for a, b in zip(got64, got)):
+                raise AssertionError("device ESA %s: the int64 build differs "
+                                     "from the int32 build" % label)
+            extra = ("; sufcheck holds; force64 (int64 ranks) equal to the "
+                     "int32 build, %.6f s" % t64)
+        out[label] = dict(n=st["n"], npad=st["npad"], rounds=st["rounds"],
+                          rounds_seconds=st["rounds_seconds"],
+                          lcp_seconds=st["lcp_seconds"],
+                          copy_seconds=st["copy_seconds"], seconds=t_dev,
+                          peak_bytes=peak, native_seconds=t_native)
+        print("device ESA %s (n %d, npad 2^%d): SA, LCP, SAi equal to the "
+              "native build's, suffix order holds (%.6f s on the host)%s; "
+              "%d doubling rounds of at most %d; synchronised clock: text to "
+              "the card and the rounds %.6f s, LCP descent and SAi %.6f s, "
+              "copy to the host %.6f s, build_esa %.6f s; peak device memory "
+              "%.6f GB above the %.6f GB held before; native SA-IS + Kasai "
+              "%.6f s on the host; the text made in %.6f s"
+              % (label, st["n"], st["npad"].bit_length() - 1, t_check, extra,
+                 st["rounds"], st["npad"].bit_length() - 1,
+                 st["rounds_seconds"], st["lcp_seconds"],
+                 st["copy_seconds"], t_dev, peak / 1e9,
+                 (base if cuda else 0) / 1e9, t_native, t_text))
+        if n == 2 and length == 2_000_000:
+            root = (T, nsep, got[0], got[1])
+    return out, root
+
+
+def run_rem_backends(label, fastas, workdir, dev="cuda"):
+    """Phase 8 (b): ``cli rem --frontier --device DEV`` on ``fastas``
+    with the default backend, then with ``--backend jax``: the same GFA
+    bytes and the same kernel launches (counts set to 0 just before each
+    run).  Returns the ``--backend jax`` run's launches."""
+    import torch
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import repair, suffix
+    from reveal_tpu_torch.index import window_resolve as wr
+
+    runs = {}
+    for backend in ("default", "jax"):
+        out = os.path.join(workdir, "esa_%s_%s.gfa"
+                           % (label.replace(" ", ""), backend))
+        argv = ["rem", *fastas, "--frontier", "--device", str(dev), "-o",
+                out]
+        if backend == "jax":
+            argv += ["--backend", "jax"]
+        suffix.LAST_STATS.clear()
+        wr.LAUNCHES = repair.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli.main(argv)
+        secs = time.perf_counter() - t0
+        runs[backend] = {"gfa": _read(out), "seconds": secs,
+                         "window_resolve": wr.LAUNCHES,
+                         "repair_pass": repair.LAUNCHES,
+                         "esa": dict(suffix.LAST_STATS)}
+    d, j = runs["default"], runs["jax"]
+    if d["esa"] or not j["esa"]:
+        raise AssertionError("rem %s: the device build ran %s with the "
+                             "default backend, %s with --backend jax"
+                             % (label, d["esa"], j["esa"]))
+    if j["gfa"] != d["gfa"]:
+        raise AssertionError("rem %s --backend jax: GFA (%d bytes) differs "
+                             "from the default backend's (%d bytes)"
+                             % (label, len(j["gfa"]), len(d["gfa"])))
+    launches = {k: j[k] for k in ("window_resolve", "repair_pass")}
+    if launches != {k: d[k] for k in launches} or not (
+            any(launches.values()) or torch.device(dev).type == "cpu"):
+        raise AssertionError("rem %s: launches %s with --backend jax, %s "
+                             "with the default" % (label, launches, d))
+    print("rem %s --backend jax --device %s: GFA byte-identical to the "
+          "default backend's (%d bytes); window_resolve %d, repair_pass %d "
+          "launches, as with the default; end to end (CLI in-process) %.6f s "
+          "against %.6f s with the default backend; the device build %d "
+          "rounds, %.6f s (rounds %.6f, LCP %.6f, copy %.6f)"
+          % (label, dev, len(j["gfa"]), launches["window_resolve"],
+             launches["repair_pass"], j["seconds"], d["seconds"],
+             j["esa"]["rounds"], sum(j["esa"][k] for k in (
+                 "rounds_seconds", "lcp_seconds", "copy_seconds")),
+             j["esa"]["rounds_seconds"], j["esa"]["lcp_seconds"],
+             j["esa"]["copy_seconds"]))
+    return dict(launches, seconds=j["seconds"],
+                default_seconds=d["seconds"])
+
+
+def child_segments(sa, lcp, labels, k):
+    """The root's SA split by ``labels`` (slot -> segment 0..k-1), each
+    segment with its own LCP: the minimum of the parent's LCP over the
+    slots between two of its own, as ``tests/test_frontier.py:88-101``
+    builds it.  Returns [(SA, LCP) int32] for ``frontier_mums``."""
+    import numpy as np
+
+    segs = []
+    for s in range(k):
+        pos = np.nonzero(labels == s)[0]
+        clcp = np.zeros(len(pos), dtype=np.int64)
+        if len(pos) > 1:
+            clcp[1:] = np.minimum.reduceat(lcp[: pos[-1] + 1], pos[:-1] + 1)
+        segs.append((sa[pos].astype(np.int32), clcp.astype(np.int32)))
+    return segs
+
+
+def check_device_mums(root, dev, minl=ESA_MINL):
+    """Phase 8 (c) on (a)'s 2 x 2 Mbp root built on the card:
+    ``pairwise_mums_device`` against the host ``pairwise_mums`` as sorted
+    (l, a, b), and ``frontier_mums`` over two children of the root against
+    the host scan of each child: the interleaved pseudo-segments of
+    ``tests/test_frontier.py`` (slots of even and of odd rank), and the
+    suffixes that start in the first half of either genome against the
+    rest."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch.index import frontier
+    from reveal_tpu_torch.index.mums import pairwise_mums, pairwise_mums_device
+
+    T, nsep, sa, lcp = root
+    nsep0 = int(nsep[0])
+    Td = torch.from_numpy(T).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = pairwise_mums_device(
+        Td, *(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (sa, lcp)),
+        nsep0, minl)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = pairwise_mums(T, sa, lcp, nsep0, minl=minl)
+    t_host = time.perf_counter() - t0
+    want = sorted((m[0], m[2][0][1], m[2][1][1]) for m in host)
+    if sorted(zip(*(x.tolist() for x in got))) != want or not want:
+        raise AssertionError("pairwise_mums_device: %d MUMs, the host scan "
+                             "%d" % (len(got[0]), len(want)))
+    print("pairwise_mums_device on the 2 x 2 Mbp root (device-built SA/LCP, "
+          "minl %d): %d MUMs equal to the host pairwise_mums; %.6f s (the "
+          "host scan %.6f s)" % (minl, len(want), t_dev, t_host))
+    n = len(sa)
+    half = ((sa >= nsep0 // 2) & (sa <= nsep0)) | (
+        sa >= nsep0 + 1 + (n - nsep0 - 1) // 2)
+    for name, labels in (("interleaved", np.arange(n) % 2),
+                         ("genome halves", half.astype(np.int64))):
+        segs = child_segments(sa, lcp, labels, 2)
+        _sync(dev)
+        t0 = time.perf_counter()
+        fm = frontier.frontier_mums(segs, Td, nsep0, minl)
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hs = [pairwise_mums(T, csa.astype(np.int64), clcp.astype(np.int64),
+                            nsep0, minl=minl) for csa, clcp in segs]
+        t_host = time.perf_counter() - t0
+        for s, (g, w) in enumerate(zip(fm, hs)):
+            if sorted(g) != sorted(w):
+                raise AssertionError("frontier_mums (%s) segment %d: %d "
+                                     "MUMs, the host scan %d"
+                                     % (name, s, len(g), len(w)))
+        print("frontier_mums over two %s children of the 2 x 2 Mbp root "
+              "(%s slots): %s MUMs equal to the per-segment host scans; %.6f "
+              "s (the host scans %.6f s)"
+              % (name, " + ".join(str(len(c[0])) for c in segs),
+                 " + ".join(str(len(g)) for g in fm), t_dev, t_host))
+
+
+def run_esa(seed, length, fastas, workdir, dev):
+    """Phase 8: (a) the device build against the native one, (b) ``rem
+    --backend jax`` against the default backend on the 2 x ``length``
+    pair of ``fastas`` (the forest) and on 6 x 100 kbp (the multi loop),
+    (c) the device MUM scans.  Returns (b)'s launches."""
+    _esa, root = check_device_esa(seed, dev)
+    six, _bp, _want = write_population(6, 100_000, seed, workdir)
+    rem = {"pair": run_rem_backends("2 x %d bp" % length, fastas, workdir,
+                                    dev),
+           "six": run_rem_backends("6 x 100 kbp", six, workdir, dev)}
+    check_device_mums(root, dev)
+    return rem
+
+
 def print_ptxas(report):
     """Registers, spills and shared memory of every kernel, from what
     ``ptxas -v`` said at the build."""
@@ -3303,15 +3636,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
     ap.add_argument("--only", choices=["kernels", "profile", "multi",
-                                       "frontier", "single", "align"],
+                                       "frontier", "single", "align",
+                                       "esa"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
                          "'profile': phases 1-2 and 5b only; 'multi': "
                          "phases 1-2, window-resolve and 5c; 'frontier': "
                          "phases 1-2 and 5d; 'single': phases 1-2 and 5e; "
-                         "'align': phases 1-2 and 7; each prints no result "
-                         "lines")
+                         "'align': phases 1-2 and 7; 'esa': phases 1-2 "
+                         "and 8; each prints no result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
                          "parent's, to time it beside this one)")
@@ -3384,6 +3718,10 @@ def main(argv=None):
             run_single(args.seed, wd)
             print("chip_smoke --only single: phases 1-2 and 5e passed")
             return
+        if args.only == "esa":
+            run_esa(args.seed, args.length, fastas, wd, dev)
+            print("chip_smoke --only esa: phases 1-2 and 8 passed")
+            return
         def done(phase):
             print("chip_smoke: %s done, %.1f s since the start"
                   % (phase, time.perf_counter() - t0))
@@ -3417,6 +3755,8 @@ def main(argv=None):
         done("phase 6c")
         align_a, align_b = run_align(args.seed, wd, case_a)
         done("phase 7")
+        esa = run_esa(args.seed, args.length, fastas, wd, dev)
+        done("phase 8")
     # window-resolve runs the multi loop's repair rounds (case a's
     # launches and times at its shapes); it is off the pairwise rem path,
     # whose repair passes run csrc/repair_pass.cu (run_rem checked 0
@@ -3461,12 +3801,19 @@ def main(argv=None):
         row["paths"] = dict(earlier, **{
             "align --run, 6 x 100 kbp (7a)": la[key],
             "align --run --order sequential, 4 x 50 kbp (7b)": lb[key]})
+        if key in ("window_resolve", "repair_pass"):
+            row["paths"].update({
+                "rem --backend jax, 2 x %d bp (8b)" % args.length:
+                esa["pair"][key],
+                "rem --backend jax, 6 x 100 kbp (8b)": esa["six"][key]})
         row["launches"] = la[key] if key != "repair_pass" else lb[key]
         held = (align_a if key != "repair_pass" else align_b)["held"][key]
         row["align_held"] = {
             which: {"shape": shape, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms}
-            for which, (err, shape, ms, plain_ms) in held.items()}
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
+            for which, (err, shape, ms, plain_ms, bound_ms, bound_by)
+            in held.items()}
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "reveal_tpu")]
     if loaded:

@@ -45,10 +45,14 @@ Covered so far:
   bubbles, extract, split, merge, comp, subgraph, stats, chop, annotate,
   matches, chain, rearrangements, transform, finish, convert, plot and
   gplot; ``rem --checkpoint`` (the serial LIFO host engine logging its
-  picks) and ``align_genomes(frontier=False)``'s host drivers.
+  picks) and the host loops of ``align_genomes(frontier=False)``;
+* the device suffix-array build (``--backend jax``: prefix doubling and
+  the LCP rank descent in torch, ``index/suffix.build_esa_device``) and
+  the device pairwise-MUM scans that read it
+  (``index/mums.pairwise_mums_device``, ``index/frontier.frontier_mums``).
 
-Not covered: the device suffix-array builds (``--backend jax``, ROADMAP
-queue 1 item 4; ``jax-dist``, item 9).
+Not covered: the multi-device routes (``--backend jax-dist``, the mesh
+and distributed builds and frontier; ROADMAP queue 1 item 9).
 
 Entry points:
 

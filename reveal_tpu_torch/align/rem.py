@@ -36,7 +36,9 @@ device paths are held to, and ``refine --method reveal_rem``'s aligner.
 when asked for: the serial LIFO loop, the level-synchronous
 ``_align_loop_levels`` (``threads > 0``) and, with ``checkpoint``, the
 LIFO loop logging its picks to an ``align/anchorlog.AnchorLog``.
-The device suffix-array builds raise ``NotImplementedError``.
+``backend="jax"`` builds the root's suffix array on the route's own
+device (``index/suffix.build_esa_device``); ``"jax-dist"`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .. import _not_covered
 from ..core.io_fasta import fasta_reader
 from ..core.io_gfa import read_gfa_into
 from ..core.textstore import TextStore
@@ -1277,14 +1278,15 @@ def align_genomes(
     ``checkpoint`` (which needs ``frontier=False`` and no threads, as in
     the reference) logs every pick of the LIFO loop to that file and
     resumes from it.  ``device`` is checked on every route.  ``backend``
-    is the host suffix-array build (``build_esa``), ``safile``/
+    is the suffix-array build (``build_esa``; ``"jax"`` builds on
+    ``device``), ``safile``/
     ``lcpfile`` load one and ``cache`` writes it; ``multi`` builds the
     parallel-edge graph (``MultiPanGraph``); ``cfgkw`` are
     ``PickerConfig`` fields."""
     dev = resolve_device(device)
     ts, t, G, root_nodes = _read_inputs(inputfiles, multi, contigs)
-    idx = ESAIndex.construct(ts, backend=backend,
-                             safile=safile, lcpfile=lcpfile, cache=cache)
+    idx = ESAIndex.construct(ts, backend=backend, safile=safile,
+                             lcpfile=lcpfile, cache=cache, device=dev)
     idx.nodes = root_nodes
     cfg = PickerConfig(**cfgkw)
     if checkpoint:
@@ -1546,9 +1548,10 @@ def _rem_device_multi_loop(
     return len(anchors)
 
 
-def _seqs_graph(aobjs: List[Tuple[str, str]], backend: str):
+def _seqs_graph(aobjs: List[Tuple[str, str]], backend: str, device=None):
     """The in-memory input of ``align_seqs``: (G, t, idx, startnode,
-    endnode) with one shared start/end marker node (rem.py:616-712)."""
+    endnode) with one shared start/end marker node (rem.py:616-712);
+    ``device`` is where ``backend="jax"`` builds the suffix array."""
     ts = TextStore()
     t = IntervalIndex()
     G = PanGraph()
@@ -1574,7 +1577,7 @@ def _seqs_graph(aobjs: List[Tuple[str, str]], backend: str):
             G.add_edge(iv, endnode, paths={sid}, ofrom="+", oto="+")
             root_nodes.add(iv)
 
-    idx = ESAIndex.construct(ts, backend=backend)
+    idx = ESAIndex.construct(ts, backend=backend, device=device)
     idx.nodes = root_nodes
     return G, t, idx, startnode, endnode
 
@@ -1605,7 +1608,8 @@ def align_seqs(
     (then the single-root loop) for a plain pair, the per-level frontier
     for the rest and for every decline of the loops.
     """
-    G, t, idx, startnode, endnode = _seqs_graph(aobjs, backend)
+    dev = resolve_device(device)
+    G, t, idx, startnode, endnode = _seqs_graph(aobjs, backend, dev)
 
     cfg = PickerConfig(
         minlength=minlength,
@@ -1619,7 +1623,7 @@ def align_seqs(
         maxsize=maxsize,
         trim=trim,
     )
-    _align_frontier(G, t, idx, cfg, resolve_device(device))
+    _align_frontier(G, t, idx, cfg, dev)
 
     prune_nodes(G, T=idx.main.T)
 

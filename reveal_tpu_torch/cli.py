@@ -5,9 +5,11 @@ variants, refine (alias realign), unzip, extract, stats, split, merge,
 comp, subgraph, convert, align, plot/gplot, chop, transform, finish,
 chain, rearrangements, annotate, matches.  Run ``python -m
 reveal_tpu_torch.cli <subcommand> -h``.  Every subcommand takes the
-global options ``-l``, ``--64`` (accepted), ``--backend auto|native|np``
-(the host suffix-array build: ``auto`` is the native one, never a quiet
-switch to numpy; ``jax`` and ``jax-dist`` are not ported) and
+global options ``-l``, ``--64`` (accepted), ``--backend
+auto|native|jax|np`` (the suffix-array build: ``auto`` is the native one,
+never a quiet switch to numpy; ``jax`` is the device doubling build, on
+``--device`` for ``rem`` and on the card for every other subcommand;
+``jax-dist`` is not ported) and
 ``--profile DIR`` (a ``torch.profiler`` trace of the whole command, CPU
 and, on a card, CUDA activity, written into DIR).
 
@@ -97,8 +99,9 @@ def _global_parser():
         default="auto",
         choices=["auto", "native", "jax", "jax-dist", "np"],
         help="Index-construction backend: auto/native (host C++; a "
-        "failed build is an error), np (numpy oracle).  jax and "
-        "jax-dist (device builds) are not ported yet.",
+        "failed build is an error), jax (the device doubling build: on "
+        "--device for rem, on the card elsewhere), np (numpy oracle).  "
+        "jax-dist (the distributed build) is not ported yet.",
     )
     p.add_argument(
         "--profile",

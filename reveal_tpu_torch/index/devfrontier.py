@@ -107,32 +107,44 @@ def _left_maximal(T, a, b):
             | (ta == SENTINEL) | lower)
 
 
-def enumerate_pairwise(T, SA, LCP, SEG, nsep0: int, minl: int):
-    """Pairwise MUM candidates of every live segment (``_get_enum_pairwise``):
-    (slots, l, a, b), int32, in ascending slot order.  ``torch.roll``
-    wraps slot 0 onto the last slot as ``jnp.roll`` does; the ``iar >= 1``
-    guard hides it."""
-    n = SA.shape[0]
-    prev = torch.roll(SA, 1)
-    seg_prev = torch.roll(SEG, 1)
+def pair_mask(T, SA, LCP, nsep0: int, minl: int, SEG=None):
+    """getmums_rem's conditions (reveal.c:119-180: straddle, left-maximal,
+    unique, ``l >= minl > 0``) on every slot of the last axis, slot i
+    pairing SA[..., i-1] with SA[..., i]: (mask, a, b), the pair's
+    positions in order.  ``torch.roll`` wraps slot 0 onto the last slot
+    as ``jnp.roll`` does; the ``i >= 1`` guard hides it.  With ``SEG``
+    (per-slot segment ids, -1 = padding) both slots must lie in one
+    segment; a read of the next slot's LCP across a segment's end sees
+    that segment's LCP[0] == 0, as the per-segment scan does at its edge.
+    The shared body of ``reveal_tpu``'s ``mum_mask`` (mums.py:366-413),
+    ``packed_mum_mask`` (frontier.py:45-88) and ``_get_enum_pairwise``."""
+    prev = torch.roll(SA, 1, -1)
     l = LCP
     straddle = (SA > nsep0) != (prev > nsep0)
     a = torch.minimum(SA, prev)
     b = torch.maximum(SA, prev)
-    leftmax = _left_maximal(T, a, b)
-    unique = (torch.roll(LCP, 1) < l) & (shift_left(LCP, 0) < l)
+    lcp_next = torch.cat([LCP[..., 1:], LCP.new_zeros(LCP.shape[:-1] + (1,))],
+                         -1)
+    unique = (torch.roll(LCP, 1, -1) < l) & (lcp_next < l)
     mask = (
-        (arange32(n, SA.device) >= 1)
-        & (SEG >= 0)
-        & (SEG == seg_prev)
+        (arange32(SA.shape[-1], SA.device) >= 1)
         & (l >= minl)
         & (l > 0)
         & straddle
-        & leftmax
+        & _left_maximal(T, a, b)
         & unique
     )
+    if SEG is not None:
+        mask &= (SEG >= 0) & (SEG == torch.roll(SEG, 1, -1))
+    return mask, a, b
+
+
+def enumerate_pairwise(T, SA, LCP, SEG, nsep0: int, minl: int):
+    """Pairwise MUM candidates of every live segment (``_get_enum_pairwise``):
+    (slots, l, a, b), int32, in ascending slot order."""
+    mask, a, b = pair_mask(T, SA, LCP, nsep0, minl, SEG)
     slots = torch.nonzero(mask).squeeze(1)
-    return slots.to(SA.dtype), take(l, slots), take(a, slots), take(b, slots)
+    return slots.to(SA.dtype), take(LCP, slots), take(a, slots), take(b, slots)
 
 
 def _pointer_doubling(LCP, start, stop, rounds):

@@ -92,6 +92,7 @@ class ESAIndex:
         safile: Optional[str] = None,
         lcpfile: Optional[str] = None,
         cache: bool = False,
+        device=None,
     ) -> "ESAIndex":
         """Build the root index from a TextStore (interface.c:160-291).
 
@@ -119,7 +120,7 @@ class ESAIndex:
             SAi = np.empty(len(SA), dtype=np.int64)
             SAi[SA] = np.arange(len(SA))
         else:
-            SA, LCP, SAi = build_esa(T, backend=backend)
+            SA, LCP, SAi = build_esa(T, backend=backend, device=device)
         if cache:
             T.tofile(".reveal.t")
             SA.astype(np.int64).tofile(".reveal.sa")

@@ -16,8 +16,8 @@ Semantics mirror the reference C engine:
   (ismultimum, reveal.c:227-259).
 
 Everything is elementwise/gather math; host numpy is used for the
-(shrinking) per-segment rescans of the recursion.  The device MUM mask of
-the reference package (``pairwise_mums_device``) is not part of this copy.
+(shrinking) per-segment rescans of the recursion.  ``pairwise_mums_device``
+is the same pairwise scan over torch tensors on one device.
 """
 
 from __future__ import annotations
@@ -352,6 +352,28 @@ def multimems(
         )
         out.append((li, c, coords))
     return out
+
+
+# ---------------------------------------------------------------------------
+# device pairwise MUM scan (the building block of the batched recursion
+# frontier): all conditions of reveal.c:119-180 as elementwise/gather math
+# over device tensors
+# ---------------------------------------------------------------------------
+
+def pairwise_mums_device(T, SA, LCP, nsep0: int, minl: int):
+    """Pairwise MUM scan of one index on the device its tensors lie on
+    (the counterpart of ``reveal_tpu``'s ``pairwise_mums_device``,
+    mums.py:366-440): T, SA, LCP tensors of one device (SA and LCP of one
+    integer type); returns numpy (l, a, b) in ascending slot order, slot
+    i pairing SA[i-1] with SA[i]."""
+    import torch
+
+    from .devfrontier import pair_mask
+
+    mask, a, b = pair_mask(T, SA, LCP, int(nsep0), int(minl))
+    idx = torch.nonzero(mask).squeeze(1)
+    l, a, b = torch.stack([LCP[idx], a[idx], b[idx]]).cpu().numpy()
+    return l, a, b
 
 
 # ---------------------------------------------------------------------------

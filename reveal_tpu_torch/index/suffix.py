@@ -1,20 +1,33 @@
-"""Suffix-array + LCP construction on the host.
+"""Suffix-array + LCP construction.
 
 The reference builds its generalized enhanced suffix array with libdivsufsort
 (divsufsort/divsufsort.c:332-358) and a Kasai LCP pass that
-stops at '$'/'N' (reveallib/interface.c:97-114).  This is the host part of
-``reveal_tpu/index/suffix.py``: the native C++ SA-IS + capped Kasai route
-of ``build_esa`` and the numpy prefix-doubling twins used as oracle.  The
-device (prefix-doubling) constructions of the reference package are not
-ported yet; asking for them raises.
+stops at '$'/'N' (reveallib/interface.c:97-114).  This is the port of
+``reveal_tpu/index/suffix.py`` on one device: the native C++ SA-IS + capped
+Kasai route of ``build_esa``, the numpy prefix-doubling twins used as
+oracle, and the device doubling build (``build_esa_device``, backend
+``'jax'``; the name is kept so that the reference's scripts and flags still
+work) in torch on the device given.  The mesh-sharded and distributed
+builds (``build_esa_sharded``, backend ``'jax-dist'``) are not ported yet;
+asking for them raises.
 """
 
 from __future__ import annotations
 
+import math
+import time
+
 import numpy as np
+import torch
 
 from .. import _not_covered
 from ..core.encoding import N_BYTE, SENTINEL
+from ..core.torchconfig import resolve_device
+
+# the last device build's counters: n, npad, rounds (doubling rounds run),
+# int64 (the 64-bit variant), rounds_seconds, lcp_seconds, copy_seconds
+# (a synchronised host clock around each stage)
+LAST_STATS = {}
 
 
 # --------------------------------------------------------------------------
@@ -123,22 +136,151 @@ def sufcheck(T: np.ndarray, SA: np.ndarray) -> bool:
     return bool(np.all(rank[SA] == np.arange(n)))
 
 
+# --------------------------------------------------------------------------
+# the device doubling build
+# --------------------------------------------------------------------------
+
+def _num_levels(n: int) -> int:
+    return max(1, int(math.ceil(math.log2(max(n, 2)))) + 1)
+
+
+def _sort_pairs(rank, key2):
+    """Stable sort of the slots by (rank, key2); returns (order as int64,
+    sorted rank, sorted key2).  ``lax.sort`` with two keys is not stable,
+    but slots that tie carry equal pairs, so the ranks derived from the
+    order are the same, and the suffix array that is kept comes from a
+    round whose pairs are all distinct."""
+    if rank.dtype == torch.int32:
+        # one packed int64 key: rank < 2^31 and key2 + 1 in [0, 2^31)
+        key = (rank.to(torch.int64) << 32) | (key2 + 1).to(torch.int64)
+        order = torch.sort(key, stable=True).indices
+    else:
+        # no room to pack two int64 keys: the minor key first, then the
+        # major, both stable
+        order = torch.sort(key2, stable=True).indices
+        order = order[torch.sort(rank[order], stable=True).indices]
+    return order, rank[order], key2[order]
+
+
+def _doubling_rounds(rank0):
+    """``_make_build_body``'s rounds of ``lax.scan`` (suffix.py:160-187):
+    sort the slots by (rank, rank[i+k] or -1), re-rank densely, until the
+    last rank is npad - 1.  Returns (sa, ranks) with ``ranks[lev]`` the
+    ranks of the substrings of length 2^lev.  The JAX scan runs all
+    nlev - 1 rounds and stores the frozen ranks of the rounds after the
+    last; they are left out here (one host read a round): at a frozen
+    level every rank is distinct, so the LCP descent advances no pair
+    there."""
+    npad = rank0.shape[0]
+    sa = torch.sort(rank0, stable=True).indices
+    ranks = [rank0]
+    if int(rank0[sa[-1]]) == npad - 1:
+        return sa, ranks
+    rank = rank0
+    for lev in range(_num_levels(npad) - 1):
+        k = 1 << lev
+        key2 = torch.cat([rank[k:], rank.new_full((k,), -1)])
+        sa, sk1, sk2 = _sort_pairs(rank, key2)
+        diff = (sk1[1:] != sk1[:-1]) | (sk2[1:] != sk2[:-1])
+        dense = torch.cat([rank.new_zeros(1),
+                           torch.cumsum(diff, 0, dtype=rank.dtype)])
+        rank = torch.empty_like(rank).scatter_(0, sa, dense)
+        ranks.append(rank)
+        if int(dense[-1]) == npad - 1:
+            break
+    return sa, ranks
+
+
+def _lcp_descent(T, sa, ranks):
+    """LCP of SA-adjacent suffixes by descent over the rank levels, from
+    the top one down (at level k, pairs whose k-prefixes agree advance by
+    k), capped by the distance to the next '$' or 'N' (suffix.py:189-221)."""
+    npad = sa.shape[0]
+    idt = ranks[0].dtype
+    a = sa[:-1].to(idt)
+    b = sa[1:].to(idt)
+    h = torch.zeros(npad - 1, dtype=idt, device=sa.device)
+    for lev in range(len(ranks) - 1, -1, -1):
+        k = 1 << lev
+        rk = ranks[lev]
+        ok = (a + k <= npad) & (b + k <= npad)
+        eq = ok & (torch.index_select(rk, 0, a.clamp(max=npad - 1))
+                   == torch.index_select(rk, 0, b.clamp(max=npad - 1)))
+        step = eq.to(idt) * k
+        h = h + step
+        a = a + step
+        b = b + step
+    iar = torch.arange(npad, dtype=idt, device=sa.device)
+    stop = torch.where((T == SENTINEL) | (T == N_BYTE), iar, npad)
+    d = torch.cummin(stop.flip(0), 0).values.flip(0) - iar
+    lcp = torch.minimum(h, torch.minimum(d[sa[:-1]], d[sa[1:]]))
+    lcp = torch.cat([lcp.new_zeros(1), lcp])
+    sai = torch.empty_like(iar).scatter_(0, sa, iar)
+    return lcp, sai
+
+
+def build_esa_device(T_np: np.ndarray, device, force64: bool = False):
+    """Device construction of (SA, LCP, SAi) for uint8 text, as numpy
+    int64: the counterpart of ``reveal_tpu``'s ``build_esa_jax``
+    (suffix.py:327-382, with ``_make_build_body``), in torch on
+    ``device`` (a ``torch.device``).
+
+    The text is padded with 0x00 to npad = 2^ceil(log2 n); zero sorts
+    below every real byte, so the npad - n pad suffixes sort first and
+    are stripped.  Ranks are int32 below npad = 2^31, int64 from there
+    or with ``force64`` (the device twin of the reference's reveallib64
+    build, setup.py:21-31)."""
+    n = int(len(T_np))
+    if n == 0:
+        z = np.empty(0, np.int64)
+        return z, z, z
+    dev = torch.device(device)
+    npad = 1 << max(1, int(math.ceil(math.log2(n))))
+    idt = torch.int64 if force64 or npad >= 2**31 else torch.int32
+    T_padded = np.zeros(npad, dtype=np.uint8)
+    T_padded[:n] = T_np
+    t0 = time.perf_counter()
+    T = torch.from_numpy(T_padded).to(dev)
+    sa, ranks = _doubling_rounds(T.to(idt))
+    t1 = time.perf_counter()
+    rounds = len(ranks) - 1
+    lcp, sai = _lcp_descent(T, sa, ranks)
+    del ranks
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    sa, lcp, sai = (x.to(torch.int64).cpu().numpy() for x in (sa, lcp, sai))
+    t3 = time.perf_counter()
+    LAST_STATS.clear()
+    LAST_STATS.update(n=n, npad=npad, rounds=rounds,
+                      int64=idt == torch.int64, rounds_seconds=t1 - t0,
+                      lcp_seconds=t2 - t1, copy_seconds=t3 - t2)
+    # strip the zero-padding: all npad-n pad suffixes sort first
+    off = npad - n
+    if off:
+        sa = sa[off:]
+        lcp = lcp[off:].copy()
+        lcp[0] = 0
+        sai = sai[:n] - off
+    return sa, lcp, sai
+
+
 def check_backend(backend: str) -> None:
-    """Raise for the device suffix-array builds, which are not ported."""
-    if backend == "jax":
-        raise _not_covered("the device suffix-array build (backend 'jax')",
-                           "4")
+    """Raise for the distributed suffix-array build, which is not
+    ported."""
     if backend == "jax-dist":
         raise _not_covered("the distributed suffix-array build (backend "
                            "'jax-dist')", "9")
 
 
-def build_esa(T_np: np.ndarray, backend: str = "auto"):
-    """(SA, LCP, SAi) with backend in {'auto','native','np'}.
+def build_esa(T_np: np.ndarray, backend: str = "auto", device=None):
+    """(SA, LCP, SAi) with backend in {'auto','native','jax','np'}.
 
     Backends: 'native' = C++ SA-IS + capped Kasai (the host path the
-    port's entry points use); 'np' = pure-numpy oracle.  'auto' means
-    native.  The device routes ('jax', 'jax-dist') are not ported.
+    port's entry points use); 'jax' = the device doubling build
+    (``build_esa_device``) on ``device``, the card unless the caller
+    names the CPU; 'np' = pure-numpy oracle.  'auto' means native.
+    'jax-dist' (the distributed build) is not ported.
     """
     check_backend(backend)
     if backend == "auto":
@@ -162,4 +304,6 @@ def build_esa(T_np: np.ndarray, backend: str = "auto"):
         lcp = _lcp_from_levels_np(T_np, sa, levels)
         sai = rank.copy()
         return sa, lcp, sai
+    if backend == "jax":
+        return build_esa_device(T_np, resolve_device(device or "cuda"))
     raise ValueError("unknown backend %r" % backend)

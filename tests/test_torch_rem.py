@@ -158,16 +158,21 @@ def _three_fastas(tmp_path):
 
 
 def test_uncovered_inputs_raise(tmp_path):
-    """Only the device suffix-array builds (``--backend jax``, item 4;
-    ``jax-dist``, item 9) are left uncovered; the serial host engine (no
-    ``--frontier``, once item 10) runs as in the reference
+    """Only the distributed suffix-array build (``--backend jax-dist``,
+    item 9) is left uncovered; the device doubling build (``--backend
+    jax``, once item 4) builds the root on the route's device and writes
+    the JAX package's ``backend="jax"`` bytes.  The serial host engine
+    (no ``--frontier``, once item 10) runs as in the reference
     (tests/test_torch_align.py), and graph inputs, multi-contig pairs and
     ``--notrim`` take the per-level frontier
     (tests/test_torch_frontier_routes.py)."""
     fa = _three_fastas(tmp_path)
-    for backend, item in (("jax", "4"), ("jax-dist", "9")):
-        with pytest.raises(NotImplementedError, match="item %s\\)" % item):
-            port_rem.align_genomes(fa[:2], device="cpu", backend=backend)
+    with pytest.raises(NotImplementedError, match="item 9\\)"):
+        port_rem.align_genomes(fa[:2], device="cpu", backend="jax-dist")
+    G, idx = jax_rem.align_genomes(fa[:2], backend="jax")
+    want = _gfa(G, idx, str(tmp_path / "jax.gfa"))
+    G, idx = port_rem.align_genomes(fa[:2], device="cpu", backend="jax")
+    assert _gfa(G, idx, str(tmp_path / "port.gfa")) == want
     with pytest.raises(ValueError):
         port_rem.align_genomes(fa[:1], device="cpu")
 

@@ -187,6 +187,13 @@ WHOLE_FILE_CHANGES = {
         ["Run: python -m reveal_tpu_torch.utils.dformat reads.fa > "
          "formatted.fa"],
     ),
+    # the device the 'jax' backend builds on
+    "index/esa_index.py": (
+        ["            SA, LCP, SAi = build_esa(T, backend=backend)"],
+        ["        device=None,",
+         "            SA, LCP, SAi = build_esa(T, backend=backend, "
+         "device=device)"],
+    ),
     # the module's own run line; --align runs the port's aligner on the
     # device given (the card unless --device cpu)
     "utils/falcon2gfa.py": (
@@ -220,7 +227,8 @@ def test_whole_file_copy_equals_original(rel):
 COPIED = {
     "index.suffix": [
         "suffix_array_np", "_rank_levels_np", "_stop_distance_np",
-        "lcp_from_sa_np", "_lcp_from_levels_np", "sufcheck"],
+        "lcp_from_sa_np", "_lcp_from_levels_np", "sufcheck", "_num_levels"],
+    "index.frontier": ["pack_segments"],
     "index.mums": [
         "_leftmax_vec", "pairwise_mums", "_psv_nsv", "lcp_intervals",
         "tuples_from_arrays", "multimums", "multimems",
@@ -280,9 +288,11 @@ def test_copied_function_equals_original(mod, name):
 # "x|y" is a line x followed by a line y.  A name "port:original" holds a
 # port function to an original of another name.
 CHANGED = {
-    # only the native and numpy routes; the device routes raise, and
-    # 'auto' is native with no numpy fallback
+    # the native, numpy and device doubling routes, the last on a device
+    # given (build_esa_device); 'jax-dist' raises, and 'auto' is native
+    # with no numpy fallback
     ("index.suffix", "build_esa"): [
+        ('def build_esa(T_np: np.ndarray, backend: str = "auto"):',) * 2,
         ('"""(SA, LCP, SAi) with backend in '
          "{'auto','jax','jax-dist','np'}.",
          "np' = pure-numpy"),
@@ -411,8 +421,10 @@ CHANGED = {
         ("ts = TextStore()", "idx.nodes = root_nodes"),
         ("if frontier or mesh is not None:", "_align_loop(G, t, idx, cfg)"),
     ],
+    # the device the 'jax' backend builds on
     ("align.rem", "_seqs_graph:align_seqs"): [
         ("def align_seqs(", '"""'),
+        ("idx = ESAIndex.construct(ts, backend=backend)",) * 2,
         ("cfg = PickerConfig(", "return G, idx"),
     ],
     # the loop runs on a device given; no environment switch to disable
