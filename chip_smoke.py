@@ -1,7 +1,7 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi|frontier|single|align|esa]
+                          [--only kernels|profile|multi|frontier|single|align|esa|dist]
                           [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
@@ -9,7 +9,8 @@ and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
 phases 1-2, the window-resolve checks of phase 3 and phase 5c;
 ``--only frontier`` phases 1-2 and 5d; ``--only single`` phases 1-2 and
-5e; ``--only align`` phases 1-2 and 7; ``--only esa`` phases 1-2 and 8.
+5e; ``--only align`` phases 1-2 and 7; ``--only esa`` phases 1-2 and 8;
+``--only dist`` phases 1-2 and 9.
 ``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
 instead of this one (with ``--only profile``: the parent's forest timed
 beside this one's, in turns, on one card in one go).
@@ -119,13 +120,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 6b. a graph of one six-path bubble of about 4 kbp (its chain tensor over
    ``msa.CHAIN_BYTES_CAP``) and four near 500 bp: the chain for four
    bubbles and the two-phase route for one in one run;
-6c. ``rem`` then ``refine`` (on the chain) end to end on the 2 x
-   ``length`` GFA of phase 5;
+6c. ``refine`` (on the chain) of the GFA ``rem`` wrote for phase 5e
+   (a)'s 2 x 500 kbp pair;
 7. ``align``, the pipeline rem -> unzip -> refine -> variants (three
    VCFs) in one process: (a) ``python -m reveal_tpu_torch.cli align
-   ... --run --device cuda -o prg`` on phase 5c (a)'s six genomes
-   (``simulate_population(6, 100_000, seed)``): ``prg.gfa`` byte for byte
-   the host engine's GFA of 5c (a) (the multi loop, window-resolve once
+   ... --run --device cuda -o prg`` on ``ALIGN_A`` = six genomes of 50
+   kbp (``simulate_population(6, 50_000, seed)``; 5c (a)'s six of 100 kbp
+   until the script outgrew its time): ``prg.gfa`` byte for byte the host
+   engine's GFA of the same fastas (the multi loop, window-resolve once
    a repair round, no repair-pass launch), ``prg.unzipped.gfa`` and the
    anchored and unzipped VCFs the host ``unzip`` and ``variants`` of
    those bytes, every path of ``prg.unzipped.realigned.gfa`` spelling its
@@ -155,7 +157,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``pairwise_mums_device`` on the device-built 2 x 2 Mbp root and
    ``frontier_mums`` over two children of it (the interleaved
    pseudo-segments of ``tests/test_frontier.py`` and the genomes'
-   halves) against the host scans.
+   halves) against the host scans;
+9. the multi-device routes (``parallel/``: torch code over
+   ``torch.distributed``, no kernel of their own): (a) the distributed
+   suffix-array build (``--backend jax-dist``) in a world of one under
+   NCCL on phase 8's 2 x 2 Mbp and 2 x 16 Mbp roots (npad 2^22, 2^25),
+   LCP stride None and "sqrt": SA, LCP and SAi exactly the native
+   build's, the rounds, the LCP descent and the copy on a synchronised
+   clock, the peak device memory, ``build_esa_device`` and the native
+   build timed beside it; (b) ``cli rem --frontier --device cuda
+   --backend jax-dist`` on phase 5's pair: the default backend's GFA
+   bytes and kernel launches; (c) ``build_pipeline_step`` in the world of
+   one at the CPU test's shapes and on the 2 x 2 Mbp root's SA and LCP
+   (two segments, the genomes' halves) with 64 related pairs at the
+   chain's 512 x 512 bucket: the count the host scans', ``cells``
+   exact, the summed log-probability within 1e-5 of the native float64
+   pair-HMM's, one launch each of the forward and backward DP kernels,
+   each held against its plain version on the step's own batch; (d) gloo
+   worlds of 2 and 4 processes on the machine's CPU, the 6 x 100 kbp root
+   (npad 2^20) exactly the native build's on every rank, timed; (e) ``cli
+   matches`` (and ``--rc``) with ``--backend jax --device cuda``: the
+   standard output of ``--backend native``.
 
 Limits: M and G0 cells where kernel and plain are both above LOG_ZERO/2
 agree within 1e-4 * max(L1p, L2p) (float32 at magnitudes that grow with
@@ -3101,8 +3123,12 @@ def _refine_cpu(unzipped, workdir):
             ("prg.unzipped.realigned.gfa", "prg.refined.vcf")}, secs
 
 
+# phase 7 (a)'s genomes: (n, bp a genome)
+ALIGN_A = (6, 50_000)
+
+
 def run_align_a(case, workdir, dev="cuda"):
-    """Phase 7 (a): ``align --run`` on the six genomes of phase 5c (a).
+    """Phase 7 (a): ``align --run`` on the genomes of ``ALIGN_A``.
     Returns the kernels' launches and their errors against plain."""
     from reveal_tpu_torch.hmm import refine
 
@@ -3154,7 +3180,7 @@ def run_align_a(case, workdir, dev="cuda"):
     if sorted(errs) != sorted(_PipelineWatch.KERNELS):
         raise AssertionError("align (a): kernels held: %s" % sorted(errs))
     print("align (a) (%s, %d paths; align --run --device %s -o prg): "
-          "prg.gfa byte-identical to the host engine's (phase 5c (a)'s, %d "
+          "prg.gfa byte-identical to the host engine's (%d "
           "bytes); prg.unzipped.gfa, prg.anchored.vcf, prg.unzipped.vcf "
           "equal to the host unzip and variants of those bytes; every path "
           "of prg.unzipped.realigned.gfa spells its input"
@@ -3308,13 +3334,13 @@ def run_align_b(seed, workdir, dev="cuda", other="cpu"):
 
 
 def run_align(seed, workdir, case=None, dev="cuda", other="cpu"):
-    """Phase 7.  ``case`` is phase 5c (a)'s (fastas, host-engine GFA,
-    {record: sequence}); without it the genomes are written and the host
-    engine run here.  ``dev`` and ``other`` are the devices under test
-    and compared with (``cpu`` for both rehearses the phase on a host
-    without a card)."""
+    """Phase 7.  ``case`` is (fastas, host-engine GFA, {record:
+    sequence}); without it the genomes of ``ALIGN_A`` are written and the
+    host engine run here.  ``dev`` and ``other`` are the devices under
+    test and compared with (``cpu`` for both rehearses the phase on a
+    host without a card)."""
     if case is None:
-        _label, n, length, _split = MULTI_CASES[0]
+        n, length = ALIGN_A
         fastas, _bp, want = write_population(n, length, seed, workdir)
         gfa = os.path.join(workdir, "host_align.gfa")
         t = host_gfa(fastas, gfa)
@@ -3326,8 +3352,10 @@ def run_align(seed, workdir, case=None, dev="cuda", other="cpu"):
     return a, b
 
 
-def run_rem_then_refine(rem_gfa, workdir, t_rem):
-    """``refine --all --minsize 2`` on the GFA ``rem`` wrote."""
+def run_rem_then_refine(rem_gfa, workdir):
+    """``refine --all --minsize 2`` on the GFA ``rem`` wrote: phase 5e
+    (a)'s 2 x 500 kbp pair (phase 5's 2 x 2 Mbp GFA until the script
+    outgrew its time, its 3,466 tiny bubbles 65-102 s of extraction)."""
     from reveal_tpu_torch.core.io_gfa import read_gfa
     from reveal_tpu_torch.graph.extract import extract
 
@@ -3339,8 +3367,8 @@ def run_rem_then_refine(rem_gfa, workdir, t_rem):
         raise AssertionError("rem then refine: %d of %d bubbles on the "
                              "chain" % (st["chain_bubbles"], st["bubbles"]))
     _check_paths(out, want)
-    print("rem then refine: paths round-trip; rem %.6f s + refine %.6f s"
-          % (t_rem, secs))
+    print("rem then refine (%s): %d bubbles, paths round-trip; refine "
+          "%.6f s" % (os.path.basename(rem_gfa), st["bubbles"], secs))
 
 
 # ----------------------------------------------------------------------
@@ -3468,54 +3496,59 @@ def check_device_esa(seed, dev):
     return out, root
 
 
-def run_rem_backends(label, fastas, workdir, dev="cuda"):
-    """Phase 8 (b): ``cli rem --frontier --device DEV`` on ``fastas``
-    with the default backend, then with ``--backend jax``: the same GFA
-    bytes and the same kernel launches (counts set to 0 just before each
-    run).  Returns the ``--backend jax`` run's launches."""
+def run_rem_backends(label, fastas, workdir, dev="cuda", backend="jax"):
+    """Phase 8 (b), 9 (b): ``cli rem --frontier --device DEV`` on
+    ``fastas`` with the default backend, then with ``--backend BACKEND``
+    (``jax``, the device build, or ``jax-dist``, the distributed build):
+    the same GFA bytes and the same kernel launches (counts set to 0 just
+    before each run).  Returns the ``--backend`` run's launches."""
     import torch
 
     from reveal_tpu_torch import cli
     from reveal_tpu_torch.index import repair, suffix
     from reveal_tpu_torch.index import window_resolve as wr
+    from reveal_tpu_torch.parallel import dsa
 
+    stats = dsa.LAST_STATS if backend == "jax-dist" else suffix.LAST_STATS
     runs = {}
-    for backend in ("default", "jax"):
+    for run in ("default", backend):
         out = os.path.join(workdir, "esa_%s_%s.gfa"
-                           % (label.replace(" ", ""), backend))
+                           % (label.replace(" ", ""), run))
         argv = ["rem", *fastas, "--frontier", "--device", str(dev), "-o",
                 out]
-        if backend == "jax":
-            argv += ["--backend", "jax"]
-        suffix.LAST_STATS.clear()
+        if run != "default":
+            argv += ["--backend", backend]
+        stats.clear()
         wr.LAUNCHES = repair.LAUNCHES = 0
         t0 = time.perf_counter()
         cli.main(argv)
         secs = time.perf_counter() - t0
-        runs[backend] = {"gfa": _read(out), "seconds": secs,
-                         "window_resolve": wr.LAUNCHES,
-                         "repair_pass": repair.LAUNCHES,
-                         "esa": dict(suffix.LAST_STATS)}
-    d, j = runs["default"], runs["jax"]
+        runs[run] = {"gfa": _read(out), "seconds": secs,
+                     "window_resolve": wr.LAUNCHES,
+                     "repair_pass": repair.LAUNCHES,
+                     "esa": dict(stats)}
+    d, j = runs["default"], runs[backend]
     if d["esa"] or not j["esa"]:
         raise AssertionError("rem %s: the device build ran %s with the "
-                             "default backend, %s with --backend jax"
-                             % (label, d["esa"], j["esa"]))
+                             "default backend, %s with --backend %s"
+                             % (label, d["esa"], j["esa"], backend))
     if j["gfa"] != d["gfa"]:
-        raise AssertionError("rem %s --backend jax: GFA (%d bytes) differs "
+        raise AssertionError("rem %s --backend %s: GFA (%d bytes) differs "
                              "from the default backend's (%d bytes)"
-                             % (label, len(j["gfa"]), len(d["gfa"])))
+                             % (label, backend, len(j["gfa"]),
+                                len(d["gfa"])))
     launches = {k: j[k] for k in ("window_resolve", "repair_pass")}
     if launches != {k: d[k] for k in launches} or not (
             any(launches.values()) or torch.device(dev).type == "cpu"):
-        raise AssertionError("rem %s: launches %s with --backend jax, %s "
-                             "with the default" % (label, launches, d))
-    print("rem %s --backend jax --device %s: GFA byte-identical to the "
+        raise AssertionError("rem %s: launches %s with --backend %s, %s "
+                             "with the default" % (label, launches, backend,
+                                                   d))
+    print("rem %s --backend %s --device %s: GFA byte-identical to the "
           "default backend's (%d bytes); window_resolve %d, repair_pass %d "
           "launches, as with the default; end to end (CLI in-process) %.6f s "
           "against %.6f s with the default backend; the device build %d "
           "rounds, %.6f s (rounds %.6f, LCP %.6f, copy %.6f)"
-          % (label, dev, len(j["gfa"]), launches["window_resolve"],
+          % (label, backend, dev, len(j["gfa"]), launches["window_resolve"],
              launches["repair_pass"], j["seconds"], d["seconds"],
              j["esa"]["rounds"], sum(j["esa"][k] for k in (
                  "rounds_seconds", "lcp_seconds", "copy_seconds")),
@@ -3615,6 +3648,336 @@ def run_esa(seed, length, fastas, workdir, dev):
     return rem
 
 
+# ----------------------------------------------------------------------
+# phase 9: the distributed suffix-array build and the sharded pipeline step
+# ----------------------------------------------------------------------
+# (a)'s roots: those of phase 8 at npad 2^22 and 2^25
+DIST_CASES = (("2 x 2 Mbp", 2, 2_000_000), ("2 x 16 Mbp", 2, 16_000_000))
+# (d): gloo worlds on the card machine's CPU, on the 6 x 100 kbp root
+DIST_WORLDS = (2, 4)
+# (c)'s real batch: pairs of 400-511 bp at the chain's 512 x 512 bucket
+STEP_PAIRS, STEP_SQUARE = 64, 512
+
+
+def _equal_esa(label, got, want):
+    import numpy as np
+
+    for name, g, w in zip(("SA", "LCP", "SAi"), got, want):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError("%s: %s differs from the native build's"
+                                 % (label, name))
+
+
+def check_dist_esa(seed, dev):
+    """Phase 9 (a): ``build_esa_distributed`` in a world of one under
+    NCCL on the roots of ``DIST_CASES``, LCP stride None and "sqrt": SA,
+    LCP and SAi exactly the native build's; the rounds, the LCP descent
+    and the gather and copy on a synchronised clock, the peak device
+    memory, the collectives posted; ``build_esa_device`` and the native
+    build timed beside it.  Returns the first root (T, nsep, SA, LCP)."""
+    import torch
+    import torch.distributed as dist
+
+    from reveal_tpu_torch.index import suffix
+    from reveal_tpu_torch.parallel import dsa
+    from reveal_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=dev)
+    if dist.get_backend(mesh.group) != "nccl" or mesh.size != 1:
+        raise AssertionError("the mesh is %s of %d ranks, not a world of "
+                             "one under NCCL"
+                             % (dist.get_backend(mesh.group), mesh.size))
+    # the first sorts of a process set up their workspaces: not timed
+    dsa.build_esa_distributed(population_text(2, 30_000, seed)[0], mesh)
+    root = None
+    for label, n, length in DIST_CASES:
+        T, nsep = population_text(n, length, seed)
+        t0 = time.perf_counter()
+        want = suffix.build_esa(T, "native")
+        t_native = time.perf_counter() - t0
+        _sync(dev)
+        t0 = time.perf_counter()
+        suffix.build_esa(T, "jax", device=dev)
+        t_single = time.perf_counter() - t0
+        for stride in (None, "sqrt"):
+            _sync(dev)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = dsa.build_esa_distributed(T, mesh, lcp_ckpt_stride=stride)
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            st = dict(dsa.LAST_STATS)
+            _equal_esa("distributed build %s stride %s" % (label, stride),
+                       got, want)
+            if st["p2p"] or st["P"] != 1:
+                raise AssertionError("a world of one posted %d p2p "
+                                     "exchanges" % st["p2p"])
+            print("distributed build %s (n %d, npad 2^%d), world of one "
+                  "(NCCL), LCP stride %s (kept every %s level): SA, LCP, SAi "
+                  "equal to the native build's; %d doubling rounds of at most "
+                  "%d; synchronised clock: rounds %.6f s, LCP descent and cap "
+                  "%.6f s, gather and copy to the host %.6f s, "
+                  "build_esa_distributed %.6f s; peak device memory %.6f GB "
+                  "above the %.6f GB held before; %d all_gathers, %d p2p; "
+                  "build_esa_device %.6f s, native SA-IS + Kasai %.6f s"
+                  % (label, st["n"], st["npad"].bit_length() - 1, stride,
+                     st["stride"] or 1, st["rounds"], st["nlev"] - 1,
+                     st["rounds_seconds"], st["lcp_seconds"],
+                     st["copy_seconds"], secs, peak / 1e9, base / 1e9,
+                     st["all_gathers"], st["p2p"], t_single, t_native))
+        if root is None:
+            root = (T, nsep, want[0], want[1])
+    return root
+
+
+def run_dist_worlds(seed, workdir):
+    """Phase 9 (d): gloo worlds of ``DIST_WORLDS`` ranks on this
+    machine's CPU (processes started and stopped here), the 6 x 100 kbp
+    root (npad 2^20) built over each, exactly the native build on every
+    rank, timed around the call."""
+    from reveal_tpu_torch.index import suffix
+    from reveal_tpu_torch.parallel import dsa
+    from reveal_tpu_torch.parallel.distributed import World
+
+    T, _nsep = population_text(6, 100_000, seed)
+    want = suffix.build_esa(T, "native")
+    for P in DIST_WORLDS:
+        store = os.path.join(workdir, "dist_world_%d" % P)
+        t0 = time.perf_counter()
+        with World(P, "file://" + store, device="cpu",
+                   timeout=300) as world:
+            # the processes start, join the group and build a small text
+            world.run(dsa.build_on_world, T[:1000], device="cpu")
+            t_up = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = world.run(dsa.build_on_world, T, device="cpu")
+            secs = time.perf_counter() - t0
+        for rank, (got, st) in enumerate(res):
+            _equal_esa("gloo world of %d, rank %d" % (P, rank), got, want)
+        st = res[0][1]
+        print("distributed build 6 x 100 kbp (n %d, npad 2^%d) in a gloo "
+              "world of %d ranks on the host's CPU: every rank's SA, LCP, "
+              "SAi equal to the native build's; %d rounds; %.6f s for the "
+              "call (rank 0: rounds %.6f s, LCP %.6f s, gather %.6f s; %d "
+              "p2p exchanges, widest %d slots = 3 x sh); the world up "
+              "(started, joined, a 1 kbp build) in %.3f s"
+              % (st["n"], st["npad"].bit_length() - 1, P, st["rounds"], secs,
+                 st["rounds_seconds"], st["lcp_seconds"], st["copy_seconds"],
+                 st["p2p"], st["widest"], t_up))
+
+
+def hold_dp(x, y, lx, ly, label):
+    """The forward and backward DP kernels against their plain versions
+    on one batch (the step's own), limit 1e-4 x max(L1p, L2p) on the
+    real cells; both times from CUDA events.  Returns {kernel: (err,
+    shape, ms, plain_ms, bound_ms, bound_by)}."""
+    import torch
+
+    from reveal_tpu_torch.hmm import pairhmm_dp as dp
+    from reveal_tpu_torch.hmm.pairhmm import default_params
+
+    params = default_params(x.device)
+    B, L1p, L2p = x.shape[0], x.shape[1], y.shape[1]
+    xcls, ycls = dp._prep(x, y)
+    xr, yr = dp._prep(dp._reverse_within(x, lx), dp._reverse_within(y, ly))
+    plan = dp.launch_plan(B, L1p, L2p)
+    lim = 1e-4 * max(L1p, L2p)
+    runs = {
+        "fwd": (lambda: dp.fwd_dp_plain(xcls, ycls, lx, params)[0],
+                lambda: dp._launch_fwd(plan, xcls, ycls, lx, params)[0]),
+        "bwd": (lambda: dp.flip_within(dp.bwd_dp_plain(xr, yr, params),
+                                       lx, ly),
+                lambda: dp._launch_bwd(plan, xr, yr, lx, ly, params)),
+    }
+    cells = int(((lx.long() + 1) * (ly.long() + 1)).sum())
+    nbytes = (B * L1p * L2p * 4 + B * 5 * L2p * 4 + B * (L1p + L2p)
+              + 8 * B + 408)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = SFU_PER_CELL * cells / SFU_OPS_PER_S * 1e3
+    out = {}
+    for name, (plain, kernel) in runs.items():
+        err = _grid_err(kernel(), plain(), "%s %s" % (label, name))
+        if err > lim:
+            raise AssertionError("%s %s: kernel and plain differ by %g "
+                                 "(limit %g)" % (label, name, err, lim))
+        p_ms = _event_ms(plain, 1)
+        k_ms = (_event_ms(kernel, 3) + _event_ms(kernel, 3)) / 2
+        p_ms = (p_ms + _event_ms(plain, 1)) / 2
+        out[name] = (err, [B, L1p, L2p], k_ms, p_ms, max(by_bytes, by_ops),
+                     "bytes" if by_bytes >= by_ops else "operations")
+        print("pipeline step %s %s kernel %d x %d x %d: max err %.3e against "
+              "plain (limit %.3e); %.6f ms (plain %.6f ms; plain, kernel x3, "
+              "kernel x3, plain); bound %.6f ms by %s; plan %s"
+              % (label, name, B, L1p, L2p, err, lim, k_ms, p_ms,
+                 out[name][4], out[name][5], _plan_text(plan)))
+    return out
+
+
+def run_pipeline_steps(root, seed, dev):
+    """Phase 9 (c): ``build_pipeline_step`` in the world of one under
+    NCCL, (1) at ``tests/test_torch_mesh.py``'s shapes (16 interleaved
+    pseudo-segments of a 2 x 500 bp root, 8 pairs of 24 x 28 bp) and (2,
+    "real") on the root's SA and LCP (phase 9 (a)'s 2 x 2 Mbp) split by
+    the genomes' halves into two segments, in one group, with
+    ``STEP_PAIRS`` related pairs
+    at the chain's 512 x 512 bucket: the count that of the host scans
+    (minl 1), ``cells`` exactly sum(lx * ly), the summed log-probability
+    within 1e-5 of the native float64 pair-HMM's sum, one launch each of
+    the forward and backward DP kernels a step, each held against its
+    plain version on the step's own batch.  Returns the real step's
+    launches and held numbers."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch.hmm import msa
+    from reveal_tpu_torch.hmm import pairhmm_dp as dp
+    from reveal_tpu_torch.hmm.pairhmm import _pad_with_dummy
+    from reveal_tpu_torch.index.frontier import pack_segments
+    from reveal_tpu_torch.index import suffix
+    from reveal_tpu_torch.index.mums import pairwise_mums
+    from reveal_tpu_torch.parallel.mesh import (_columns4,
+                                                build_pipeline_step,
+                                                make_mesh)
+
+    mesh = make_mesh(device=dev)
+    rng = np.random.default_rng(seed + 21)
+    T, nsep = population_text(2, 500, seed)
+    sa, lcp, _sai = suffix.build_esa(T, "native")
+    small = child_segments(sa, lcp, np.arange(len(sa)) % 16, 16)
+    s1 = ["".join(rng.choice(list("ACGT"), size=24)) for _ in range(8)]
+    s2 = ["".join(rng.choice(list("ACGT"), size=28)) for _ in range(8)]
+    small_pairs = list(zip(s1, s2))
+    xb = np.stack([_pad_with_dummy(a.encode(), 32) for a in s1])
+    yb = np.stack([_pad_with_dummy(b.encode(), 32) for b in s2])
+    cases = [("small", T, nsep, small, small_pairs, (xb, yb))]
+    T2, nsep2, sa2, lcp2 = root
+    n = len(sa2)
+    n0 = int(nsep2[0])
+    half = ((sa2 >= n0 // 2) & (sa2 <= n0)) | (
+        sa2 >= n0 + 1 + (n - n0 - 1) // 2)
+    big = child_segments(sa2, lcp2, half.astype(np.int64), 2)
+    pairs = _related_pairs(rng, STEP_PAIRS, STEP_SQUARE * 25 // 32,
+                           STEP_SQUARE - 1)
+    x, y, _lx, _ly = dp.pack(pairs, STEP_SQUARE, STEP_SQUARE, "cpu")
+    cases.append(("real", T2, nsep2, big, pairs, (x.numpy(), y.numpy())))
+    held = {}
+    for label, Tc, nsep_c, segs, prs, (xb, yb) in cases:
+        nsep0 = int(nsep_c[0])
+        SA, LCP, SEG = pack_segments(segs, n_groups=mesh.size)
+        lx = np.array([len(a) for a, _ in prs], dtype=np.int32)
+        ly = np.array([len(b) for _, b in prs], dtype=np.int32)
+        t0 = time.perf_counter()
+        host = [pairwise_mums(Tc, csa.astype(np.int64),
+                              clcp.astype(np.int64), nsep0, minl=1)
+                for csa, clcp in segs]
+        t_host = time.perf_counter() - t0
+        want = sum(len(h) for h in host)
+        want_top = max(m[0] for h in host for m in h)
+        nat = msa.batch_posteriors_cut_native(prs)
+        nat_sum = float(sum(t for _p, t, _s in nat))
+        step = build_pipeline_step(mesh, nsep0)
+        step(Tc, SA, LCP, SEG, xb, yb, lx, ly)  # workspaces: not timed
+        _sync(dev)
+        dp.LAUNCHES["fwd"] = dp.LAUNCHES["bwd"] = 0
+        t0 = time.perf_counter()
+        count, cl, cp, cells, logprob = step(Tc, SA, LCP, SEG, xb, yb, lx,
+                                             ly)
+        count, cells, logprob = int(count), int(cells), float(logprob)
+        secs = time.perf_counter() - t0
+        launches = dict(dp.LAUNCHES)
+        want_cells = int(np.sum(lx.astype(np.int64) * ly))
+        rel = abs(logprob - nat_sum) / abs(nat_sum)
+        if count != want or cells != want_cells or rel > 1e-5 or launches \
+                != {"fwd": 1, "bwd": 1} or not np.isfinite(logprob):
+            raise AssertionError(
+                "pipeline step %s: count %d (host %d), cells %d (%d), "
+                "logprob %r (native %r, %.3e relative), launches %s"
+                % (label, count, want, cells, want_cells, logprob, nat_sum,
+                   rel, launches))
+        top = cl.cpu().numpy()
+        if not np.all(np.diff(top) <= 0) or int(top[0]) != want_top:
+            raise AssertionError("pipeline step %s: candidate lengths %s, "
+                                 "the longest host MUM %d"
+                                 % (label, top[:4], want_top))
+        print("pipeline step %s (world of one, NCCL): %d candidate MUMs "
+              "(host scans %d, %.6f s), top length %d; cells %d exact; "
+              "logprob %.6f, native float64 %.6f (%.3e relative, limit "
+              "1e-5); forward and backward DP launches %d and %d; the step "
+              "%.6f s" % (label, count, want, t_host, int(top[0]), cells,
+                          logprob, nat_sum, rel, launches["fwd"],
+                          launches["bwd"], secs))
+        dev_x = torch.from_numpy(np.ascontiguousarray(xb)).to(dev)
+        dev_y = _columns4(torch.from_numpy(np.ascontiguousarray(yb)).to(dev))
+        held[label] = hold_dp(dev_x, dev_y, torch.from_numpy(lx).to(dev),
+                              torch.from_numpy(ly).to(dev), label)
+    return {"launches": launches, "held": held["real"],
+            "small": held["small"]}
+
+
+def run_matches_backends(fastas, workdir, dev):
+    """Phase 9 (e): ``cli matches`` (and ``--rc``) on phase 5's pair with
+    ``--backend jax --device DEV`` against ``--backend native``: the same
+    standard output and files."""
+    import contextlib
+    import io
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import suffix
+
+    for extra in ([], ["--rc"]):
+        outs = {}
+        for backend in ("native", "jax"):
+            d = os.path.join(workdir, "matches_%s%s" % (backend,
+                                                        "".join(extra)))
+            os.makedirs(d)
+            argv = ["matches", *fastas, "-m", "20", "--backend", backend,
+                    "--device", str(dev), *extra]
+            suffix.LAST_STATS.clear()
+            buf = io.StringIO()
+            cwd = os.getcwd()
+            os.chdir(d)
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(argv)
+            finally:
+                os.chdir(cwd)
+            outs[backend] = (buf.getvalue(), sorted(os.listdir(d)),
+                             time.perf_counter() - t0,
+                             dict(suffix.LAST_STATS))
+        nat, jx = outs["native"], outs["jax"]
+        if jx[:2] != nat[:2] or not jx[3] or nat[3]:
+            raise AssertionError("matches%s --backend jax --device %s: "
+                                 "output differs from --backend native's "
+                                 "(%d against %d bytes), device build %s"
+                                 % (" ".join([""] + extra), dev, len(jx[0]),
+                                    len(nat[0]), jx[3]))
+        print("matches%s --backend jax --device %s on the 2 x 2 Mbp pair: "
+              "stdout equal to --backend native's (%d lines); %.6f s against "
+              "%.6f s; the device build ran %d rounds"
+              % (" ".join([""] + extra), dev, jx[0].count("\n"), jx[2],
+                 nat[2], jx[3]["rounds"]))
+
+
+def run_dist(seed, length, fastas, workdir, dev):
+    """Phase 9: (a) the distributed build in a world of one under NCCL,
+    (b) ``rem --backend jax-dist`` against the default backend, (c) the
+    pipeline step, (d) gloo worlds of 2 and 4 ranks on the CPU, (e)
+    ``matches --backend jax`` on the card.  Returns (b)'s launches and
+    (c)'s numbers."""
+    import torch.distributed as dist
+
+    root = check_dist_esa(seed, dev)
+    rem = run_rem_backends("2 x %d bp" % length, fastas, workdir, dev,
+                           backend="jax-dist")
+    step = run_pipeline_steps(root, seed, dev)
+    run_dist_worlds(seed, workdir)
+    run_matches_backends(fastas, workdir, dev)
+    dist.destroy_process_group()
+    return rem, step
+
+
 def print_ptxas(report):
     """Registers, spills and shared memory of every kernel, from what
     ``ptxas -v`` said at the build."""
@@ -3637,7 +4000,7 @@ def main(argv=None):
     ap.add_argument("--length", type=int, default=2_000_000)
     ap.add_argument("--only", choices=["kernels", "profile", "multi",
                                        "frontier", "single", "align",
-                                       "esa"],
+                                       "esa", "dist"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
@@ -3645,7 +4008,8 @@ def main(argv=None):
                          "phases 1-2, window-resolve and 5c; 'frontier': "
                          "phases 1-2 and 5d; 'single': phases 1-2 and 5e; "
                          "'align': phases 1-2 and 7; 'esa': phases 1-2 "
-                         "and 8; each prints no result lines")
+                         "and 8; 'dist': phases 1-2 and 9; each prints no "
+                         "result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
                          "parent's, to time it beside this one)")
@@ -3722,6 +4086,10 @@ def main(argv=None):
             run_esa(args.seed, args.length, fastas, wd, dev)
             print("chip_smoke --only esa: phases 1-2 and 8 passed")
             return
+        if args.only == "dist":
+            run_dist(args.seed, args.length, fastas, wd, dev)
+            print("chip_smoke --only dist: phases 1-2 and 9 passed")
+            return
         def done(phase):
             print("chip_smoke: %s done, %.1f s since the start"
                   % (phase, time.perf_counter() - t0))
@@ -3734,10 +4102,10 @@ def main(argv=None):
         if args.only == "kernels":
             print("chip_smoke --only kernels: phases 1-4 passed")
             return
-        rem_launches, rem_gfa, t_rem = run_rem(fastas, total_bp, wd)
+        rem_launches, _gfa, _t_rem = run_rem(fastas, total_bp, wd)
         profile_forest(fastas, total_bp, wd, "this checkout:")
         done("phase 5-5b")
-        case_a, multi = run_multi(args.seed, wd)
+        _case_a, multi = run_multi(args.seed, wd)
         done("phase 5c")
         run_frontier(args.seed, wd)
         done("phase 5d")
@@ -3751,12 +4119,14 @@ def main(argv=None):
         relax = time_relaxation(dev)
         run_mixed(args.seed, wd)
         done("phase 6-6b")
-        run_rem_then_refine(rem_gfa, wd, t_rem)
+        run_rem_then_refine(os.path.join(wd, "single_a.gfa"), wd)
         done("phase 6c")
-        align_a, align_b = run_align(args.seed, wd, case_a)
+        align_a, align_b = run_align(args.seed, wd)
         done("phase 7")
         esa = run_esa(args.seed, args.length, fastas, wd, dev)
         done("phase 8")
+        dist_rem, step = run_dist(args.seed, args.length, fastas, wd, dev)
+        done("phase 9")
     # window-resolve runs the multi loop's repair rounds (case a's
     # launches and times at its shapes); it is off the pairwise rem path,
     # whose repair passes run csrc/repair_pass.cu (run_rem checked 0
@@ -3799,13 +4169,23 @@ def main(argv=None):
             (rows[4], "mea_score", {"refine, 72 bubbles (6)":
                                     launches["mea"]})):
         row["paths"] = dict(earlier, **{
-            "align --run, 6 x 100 kbp (7a)": la[key],
+            "align --run, %d x %d bp (7a)" % ALIGN_A: la[key],
             "align --run --order sequential, 4 x 50 kbp (7b)": lb[key]})
         if key in ("window_resolve", "repair_pass"):
             row["paths"].update({
                 "rem --backend jax, 2 x %d bp (8b)" % args.length:
                 esa["pair"][key],
-                "rem --backend jax, 6 x 100 kbp (8b)": esa["six"][key]})
+                "rem --backend jax, 6 x 100 kbp (8b)": esa["six"][key],
+                "rem --backend jax-dist, 2 x %d bp (9b)" % args.length:
+                dist_rem[key]})
+        if key in ("fwd", "bwd"):
+            row["paths"]["build_pipeline_step, %d x %d x %d (9c)" % (
+                STEP_PAIRS, STEP_SQUARE, STEP_SQUARE)] = step["launches"][key]
+            row["pipeline_step_held"] = {
+                which: dict(zip(("max_abs_err", "shape", "ms", "plain_ms",
+                                 "bound_ms", "bound_by"), h[key]))
+                for which, h in (("real", step["held"]),
+                                 ("small", step["small"]))}
         row["launches"] = la[key] if key != "repair_pass" else lb[key]
         held = (align_a if key != "repair_pass" else align_b)["held"][key]
         row["align_held"] = {

@@ -49,10 +49,17 @@ Covered so far:
 * the device suffix-array build (``--backend jax``: prefix doubling and
   the LCP rank descent in torch, ``index/suffix.build_esa_device``) and
   the device pairwise-MUM scans that read it
-  (``index/mums.pairwise_mums_device``, ``index/frontier.frontier_mums``).
+  (``index/mums.pairwise_mums_device``, ``index/frontier.frontier_mums``);
+* the process groups and the distributed suffix-array build
+  (``--backend jax-dist``, ``parallel/dsa.build_esa_distributed``: one
+  process a rank in a ``torch.distributed`` group, gloo on the CPU and
+  NCCL on cards, a world of one unless the caller set up a group with
+  ``parallel/distributed.init_distributed``), and the sharded pipeline
+  step (``parallel/mesh.build_pipeline_step``).
 
-Not covered: the multi-device routes (``--backend jax-dist``, the mesh
-and distributed builds and frontier; ROADMAP queue 1 item 9).
+Not covered: the mesh frontier (``DeviceFrontier(mesh=)``, ``mesh=`` on
+``align_seqs``/``align_genomes``) and multi-process ``rem`` (ROADMAP
+queue 1 item 9).
 
 Entry points:
 
@@ -64,11 +71,3 @@ Entry points:
 * ``python -m reveal_tpu_torch.cli <subcommand> -h`` for the rest
 """
 
-
-def _not_covered(what: str, item: str):
-    """The error for a path of ``reveal_tpu`` the port does not cover
-    yet; ``item`` is its entry in ROADMAP.md queue 1."""
-    return NotImplementedError(
-        "%s is not covered by reveal_tpu_torch yet (ROADMAP queue 1 "
-        "item %s); run reveal_tpu for it" % (what, item)
-    )

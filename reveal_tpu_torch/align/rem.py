@@ -37,8 +37,9 @@ when asked for: the serial LIFO loop, the level-synchronous
 ``_align_loop_levels`` (``threads > 0``) and, with ``checkpoint``, the
 LIFO loop logging its picks to an ``align/anchorlog.AnchorLog``.
 ``backend="jax"`` builds the root's suffix array on the route's own
-device (``index/suffix.build_esa_device``); ``"jax-dist"`` raises
-``NotImplementedError``.
+device (``index/suffix.build_esa_device``), ``"jax-dist"`` over the ranks
+of a mesh on it (``parallel/dsa.build_esa_distributed``; a world of one
+unless the caller set up a process group).
 """
 
 from __future__ import annotations

@@ -6,10 +6,13 @@ comp, subgraph, convert, align, plot/gplot, chop, transform, finish,
 chain, rearrangements, annotate, matches.  Run ``python -m
 reveal_tpu_torch.cli <subcommand> -h``.  Every subcommand takes the
 global options ``-l``, ``--64`` (accepted), ``--backend
-auto|native|jax|np`` (the suffix-array build: ``auto`` is the native one,
-never a quiet switch to numpy; ``jax`` is the device doubling build, on
-``--device`` for ``rem`` and on the card for every other subcommand;
-``jax-dist`` is not ported) and
+auto|native|jax|jax-dist|np`` (the suffix-array build: ``auto`` is the
+native one, never a quiet switch to numpy; ``jax`` is the device doubling
+build, ``jax-dist`` the distributed build over a process group's ranks, a
+world of one unless the caller set up a group; both on ``--device`` for
+the subcommands that have it -- ``rem``, ``refine``, ``align``,
+``matches``, ``plot``, ``chain``, ``transform`` and ``finish`` -- and on
+the card elsewhere, never quietly on the CPU) and
 ``--profile DIR`` (a ``torch.profiler`` trace of the whole command, CPU
 and, on a card, CUDA activity, written into DIR).
 
@@ -99,9 +102,12 @@ def _global_parser():
         default="auto",
         choices=["auto", "native", "jax", "jax-dist", "np"],
         help="Index-construction backend: auto/native (host C++; a "
-        "failed build is an error), jax (the device doubling build: on "
-        "--device for rem, on the card elsewhere), np (numpy oracle).  "
-        "jax-dist (the distributed build) is not ported yet.",
+        "failed build is an error), jax (the device doubling build), "
+        "jax-dist (the distributed build over the ranks of a process "
+        "group; a world of one unless the caller set one up), np (numpy "
+        "oracle).  The device builds run on --device where the "
+        "subcommand has it (rem, refine, align, matches, plot, chain, "
+        "transform, finish), on the card elsewhere.",
     )
     p.add_argument(
         "--profile",
@@ -1429,6 +1435,7 @@ def build_parser():
                    help="Flanking bases per region: <f1>,<f2>,...")
     p.add_argument("--extension", default="png",
                    choices=["png", "pdf", "ps", "eps", "svg"])
+    _device_option(p, "the suffix-array build of --backend jax or jax-dist")
     p.set_defaults(func=plot_cmd)
 
     p = sub.add_parser("gplot", parents=[gp], help="Dotplot from a graph's shared nodes.")
@@ -1445,6 +1452,7 @@ def build_parser():
     p.add_argument("fastas", nargs=2)
     p.add_argument("-m", "--minlength", type=int, default=20)
     p.add_argument("--rc", action="store_true")
+    _device_option(p, "the suffix-array build of --backend jax or jax-dist")
     p.set_defaults(func=matches_cmd)
 
     p = sub.add_parser("transform", parents=[gp], help="Layout draft contigs against a reference (breakpoint graph).")
@@ -1470,6 +1478,7 @@ def build_parser():
     p.add_argument("--nooptimise", action="store_true")
     p.add_argument("--nobed", action="store_true")
     p.add_argument("-o", "--output", default=None)
+    _device_option(p, "the suffix-array build of --backend jax or jax-dist")
     p.set_defaults(func=transform_cmd)
 
     p = sub.add_parser("finish", parents=[gp], help="Order/orient draft contigs into pseudomolecules.")
@@ -1504,6 +1513,7 @@ def build_parser():
                    help="One fasta file per pseudomolecule.")
     p.add_argument("--nounplaced", action="store_true")
     p.add_argument("-o", "--output", default=None)
+    _device_option(p, "the suffix-array build of --backend jax or jax-dist")
     p.set_defaults(func=finish_cmd)
 
     p = sub.add_parser("convert", parents=[gp], help="Convert gfa<->gml/maf, fasta->gfa.")
@@ -1527,6 +1537,7 @@ def build_parser():
     p.add_argument("--wpen", "--wp", type=int, default=1)
     p.add_argument("--wscore", "--ws", type=int, default=1)
     p.add_argument("-o", "--output", default=None)
+    _device_option(p, "the suffix-array build of --backend jax or jax-dist")
     p.set_defaults(func=chain_cmd)
 
     p = sub.add_parser("annotate", parents=[gp], help="Add repeat classification to VCF records.")
@@ -1561,7 +1572,7 @@ def _profiled(profiledir):
 def main(argv=None):
     import contextlib
 
-    from .index.suffix import check_backend
+    from .index.suffix import build_device
 
     logging.addLevelName(TRACE, "TRACE")
     parser = build_parser()
@@ -1574,12 +1585,11 @@ def main(argv=None):
         level=args.loglevel,
         format="%(asctime)-15s %(levelname)s: %(message)s",
     )
-    check_backend(args.backend)
     profiledir = getattr(args, "profiledir", None)
     trace_cm = (_profiled(profiledir) if profiledir
                 else contextlib.nullcontext())
     try:
-        with trace_cm:
+        with trace_cm, build_device(getattr(args, "device", "cuda")):
             return args.func(args) or 0
     except BrokenPipeError:
         try:

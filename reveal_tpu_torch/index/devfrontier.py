@@ -33,8 +33,8 @@ and segment tables to few shapes to bound compiles; torch compiles nothing,
 and the padding rows (begins past the text, repair keys past every segment
 id, seg-map rows of -1) never change a result, so the tables go as they
 are.  The power-of-two repair windows bound compiles too; one flat gather
-moves fewer bytes.  The ``*_mesh`` functions are the multi-device route
-(ROADMAP item 9) and are not ported.
+moves fewer bytes.  The ``*_mesh`` functions are the mesh frontier
+(ROADMAP queue 1 item 9b) and are not ported yet.
 """
 
 from __future__ import annotations

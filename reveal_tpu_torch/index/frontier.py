@@ -12,8 +12,9 @@ Segment-boundary correctness falls out of the ESA invariants: every
 segment's LCP[0] is 0, so a neighbor read that crosses into the next
 segment's first slot reads 0, the value the per-segment scan uses at its
 boundary.  Only the pair mask needs the explicit same-segment guard.
-The groups of ``pack_segments`` are the reference's per-device rows; the
-mesh that shards them is ROADMAP queue 1 item 9 and is not ported.
+The groups of ``pack_segments`` are the reference's per-device rows: the
+sharded pipeline step (``parallel/mesh.build_pipeline_step``) scores one
+group a rank.
 """
 
 from __future__ import annotations

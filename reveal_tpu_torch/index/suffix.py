@@ -7,20 +7,23 @@ stops at '$'/'N' (reveallib/interface.c:97-114).  This is the port of
 Kasai route of ``build_esa``, the numpy prefix-doubling twins used as
 oracle, and the device doubling build (``build_esa_device``, backend
 ``'jax'``; the name is kept so that the reference's scripts and flags still
-work) in torch on the device given.  The mesh-sharded and distributed
-builds (``build_esa_sharded``, backend ``'jax-dist'``) are not ported yet;
-asking for them raises.
+work) in torch on the device given.  Backend ``'jax-dist'`` and
+``build_esa_sharded`` are the distributed build of ``parallel/dsa.py`` over
+a mesh of ranks (a world of one unless the caller set up a process group).
+
+A caller that names no device builds on the device of ``build_device``
+(the CLI enters it with ``--device``), the card by default.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
 import numpy as np
 import torch
 
-from .. import _not_covered
 from ..core.encoding import N_BYTE, SENTINEL
 from ..core.torchconfig import resolve_device
 
@@ -28,6 +31,23 @@ from ..core.torchconfig import resolve_device
 # int64 (the 64-bit variant), rounds_seconds, lcp_seconds, copy_seconds
 # (a synchronised host clock around each stage)
 LAST_STATS = {}
+
+# the device of a build whose caller names none (``build_device``)
+_BUILD_DEVICE = ["cuda"]
+
+
+@contextlib.contextmanager
+def build_device(device):
+    """Within the block, ``build_esa``'s device builds (``'jax'``,
+    ``'jax-dist'``) whose caller passes no device run on ``device``: the
+    CLI's ``--device`` for the subcommands that build an index through
+    host code that names no device.  Outside any block it is the card."""
+    prev = _BUILD_DEVICE[0]
+    _BUILD_DEVICE[0] = device
+    try:
+        yield
+    finally:
+        _BUILD_DEVICE[0] = prev
 
 
 # --------------------------------------------------------------------------
@@ -265,24 +285,43 @@ def build_esa_device(T_np: np.ndarray, device, force64: bool = False):
     return sa, lcp, sai
 
 
-def check_backend(backend: str) -> None:
-    """Raise for the distributed suffix-array build, which is not
-    ported."""
-    if backend == "jax-dist":
-        raise _not_covered("the distributed suffix-array build (backend "
-                           "'jax-dist')", "9")
+def build_esa_sharded(T_np: np.ndarray, mesh, force64: bool = False):
+    """(SA, LCP, SAi) built over ``mesh``'s ranks: the counterpart of
+    ``reveal_tpu``'s GSPMD build (suffix.py:276-325).  Torch has no
+    partitioner, so it is the distributed build of ``parallel/dsa.py``,
+    whose arrays are the same."""
+    from ..parallel.dsa import build_esa_distributed
+
+    return build_esa_distributed(T_np, mesh, force64=force64)
 
 
 def build_esa(T_np: np.ndarray, backend: str = "auto", device=None):
-    """(SA, LCP, SAi) with backend in {'auto','native','jax','np'}.
+    """(SA, LCP, SAi) with backend in {'auto','native','jax','jax-dist','np'}.
 
     Backends: 'native' = C++ SA-IS + capped Kasai (the host path the
     port's entry points use); 'jax' = the device doubling build
-    (``build_esa_device``) on ``device``, the card unless the caller
-    names the CPU; 'np' = pure-numpy oracle.  'auto' means native.
-    'jax-dist' (the distributed build) is not ported.
+    (``build_esa_device``) on ``device``; 'jax-dist' = the distributed
+    build over ``make_mesh(device=device)``'s ranks (a world of one
+    unless the caller set up a process group; parallel/dsa.py); 'np' =
+    pure-numpy oracle.  'auto' means native.  The device builds run on
+    ``device``, or ``build_device``'s when the caller names none: the
+    card unless the CPU is named.
     """
-    check_backend(backend)
+    device = device or _BUILD_DEVICE[0]
+    if backend == "jax-dist":
+        import os
+
+        from ..parallel.dsa import build_esa_distributed
+        from ..parallel.mesh import make_mesh
+
+        # low-HBM LCP descent knob (int or "sqrt"): regenerate rank
+        # levels from sparse checkpoints instead of storing all of them
+        stride = os.environ.get("REVEAL_TPU_DSA_LCP_STRIDE") or None
+        if stride is not None and stride != "sqrt":
+            stride = int(stride)
+        return build_esa_distributed(
+            T_np, make_mesh(device=device), lcp_ckpt_stride=stride
+        )
     if backend == "auto":
         # "native", not native-then-numpy: a failed native build raises
         # instead of quietly switching to the numpy suffix sort
@@ -305,5 +344,5 @@ def build_esa(T_np: np.ndarray, backend: str = "auto", device=None):
         sai = rank.copy()
         return sa, lcp, sai
     if backend == "jax":
-        return build_esa_device(T_np, resolve_device(device or "cuda"))
+        return build_esa_device(T_np, resolve_device(device))
     raise ValueError("unknown backend %r" % backend)

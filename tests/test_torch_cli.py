@@ -45,7 +45,8 @@ from reveal_tpu.core.io_fasta import fasta_writer
 from reveal_tpu_torch import cli as port_cli
 
 # subcommands that take --device in the port
-DEVICE_CMDS = ("rem", "refine", "realign", "align")
+DEVICE_CMDS = ("rem", "refine", "realign", "align", "matches", "plot",
+               "chain", "transform", "finish")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -436,22 +437,18 @@ def test_classify_allele_equals_reference():
     assert [port(a) for a in alleles] == [ref(a) for a in alleles]
 
 
-@pytest.mark.parametrize("backend,item", [("jax", "4"), ("jax-dist", "9")])
+@pytest.mark.parametrize("backend", ["jax", "jax-dist"])
 @pytest.mark.parametrize("cmd", ["rem", "stats"])
-def test_device_esa_backends_are_not_covered(backend, item, cmd, inputs,
+def test_device_esa_backends_are_not_covered(backend, cmd, inputs,
                                              tmp_path, capsys):
-    """``--backend jax-dist`` (item 9) still raises before any work.
-    ``--backend jax`` (item 4, ported) runs the device doubling build
-    (``rem`` on ``--device cpu``): standard output and every file equal
-    the reference CLI's with the same backend."""
+    """Both device builds are covered now (the name is the one this test
+    had while ``--backend jax-dist`` raised): ``--backend jax`` (the
+    device doubling build) and ``--backend jax-dist`` (the distributed
+    build, here a gloo world of one; the reference's on its 8-device
+    mesh), ``rem`` on ``--device cpu``: standard output and every file
+    equal the reference CLI's with the same backend."""
     argv = {"rem": ["rem", "ga.fa", "gb.fa", "-o", "out.gfa"],
             "stats": ["stats", "ab.gfa"]}[cmd] + ["--backend", backend]
-    if backend == "jax-dist":
-        d = inputs["cli"]
-        with pytest.raises(NotImplementedError, match="item %s\\)" % item):
-            _run(port_cli.main, _port_argv(argv), d, capsys, None)
-        assert not (d / "out.gfa").exists()
-        return
     runs = {}
     for side, main, args in (("ref", ref_cli.main, argv),
                              ("port", port_cli.main, _port_argv(argv))):
@@ -460,6 +457,46 @@ def test_device_esa_backends_are_not_covered(backend, item, cmd, inputs,
         out, _err = _run(main, args, d, capsys, None)
         runs[side] = (out, _files(d))
     assert runs["port"] == runs["ref"]
+
+
+# the host subcommands that build an index through ESAIndex.construct
+# with no device of their own: with --backend jax or jax-dist the build
+# runs on the port's --device (index/suffix.build_device)
+DEVICE_ESA_SCENARIOS = [(name, backend) for name, backend in (
+    ("matches", "jax"), ("matches-rc", "jax"), ("chain", "jax"),
+    ("plot", "jax"), ("transform", "jax"), ("finish", "jax"),
+    ("matches", "jax-dist"))]
+
+
+@pytest.mark.parametrize("name,backend", DEVICE_ESA_SCENARIOS,
+                         ids=["%s-%s" % s for s in DEVICE_ESA_SCENARIOS])
+def test_host_subcommands_build_on_the_device_given(name, backend, inputs,
+                                                    tmp_path, capsys,
+                                                    monkeypatch):
+    """``matches``, ``chain``, ``plot``, ``transform`` and ``finish`` with
+    a device build: on ``--device cpu`` their standard output and files
+    are the reference CLI's with the same backend (JAX's default device
+    is the CPU here); without ``--device`` the build goes to the card,
+    and without one it raises before writing anything."""
+    _, where, argv, _opts = next(s for s in SCENARIOS if s[0] == name)
+    i = argv.index("--backend")
+    argv = argv[:i + 1] + [backend] + argv[i + 2:]
+    runs = {}
+    for side, main, args in (("ref", ref_cli.main, argv),
+                             ("port", port_cli.main, _port_argv(argv))):
+        d = tmp_path / side
+        shutil.copytree(inputs[where], d)
+        out, _err = _run(main, args, d, capsys, None)
+        runs[side] = (out, _files(d))
+    assert _port_argv(argv)[1:3] == ["--device", "cpu"]
+    assert runs["port"] == runs["ref"]
+    d = tmp_path / "card"
+    shutil.copytree(inputs[where], d)
+    before = _files(d)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out, err = _run(port_cli.main, argv, d, capsys, RuntimeError)
+    assert "is_available" in err
+    assert _files(d) == before
 
 
 def test_64_is_accepted(inputs, capsys):

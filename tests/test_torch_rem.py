@@ -158,17 +158,21 @@ def _three_fastas(tmp_path):
 
 
 def test_uncovered_inputs_raise(tmp_path):
-    """Only the distributed suffix-array build (``--backend jax-dist``,
-    item 9) is left uncovered; the device doubling build (``--backend
-    jax``, once item 4) builds the root on the route's device and writes
-    the JAX package's ``backend="jax"`` bytes.  The serial host engine
+    """Nothing is left uncovered here (the name is from when something
+    was): the distributed suffix-array build (``--backend jax-dist``,
+    once item 9) builds the root over a world of one on the route's
+    device and writes the JAX package's ``backend="jax-dist"`` bytes,
+    as the device doubling build (``--backend jax``, once item 4) writes
+    its ``backend="jax"`` bytes.  The serial host engine
     (no ``--frontier``, once item 10) runs as in the reference
     (tests/test_torch_align.py), and graph inputs, multi-contig pairs and
     ``--notrim`` take the per-level frontier
     (tests/test_torch_frontier_routes.py)."""
     fa = _three_fastas(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 9\\)"):
-        port_rem.align_genomes(fa[:2], device="cpu", backend="jax-dist")
+    G, idx = jax_rem.align_genomes(fa[:2], backend="jax-dist")
+    want = _gfa(G, idx, str(tmp_path / "jax_dist.gfa"))
+    G, idx = port_rem.align_genomes(fa[:2], device="cpu", backend="jax-dist")
+    assert _gfa(G, idx, str(tmp_path / "port_dist.gfa")) == want
     G, idx = jax_rem.align_genomes(fa[:2], backend="jax")
     want = _gfa(G, idx, str(tmp_path / "jax.gfa"))
     G, idx = port_rem.align_genomes(fa[:2], device="cpu", backend="jax")

@@ -113,9 +113,20 @@ def test_rounds_stop_early_or_run_to_the_end():
 
 
 def test_jax_dist_raises_and_no_card_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 9\\)"):
-        suffix.build_esa(TEXTS["banana"], "jax-dist")
+    """``'jax-dist'`` (once unported, hence the name) builds over a world
+    of one on the device named, the arrays of the JAX package's
+    distributed build on its 8-device mesh; the device builds without a
+    device named go to the card, and without a card they raise."""
+    from reveal_tpu.index.suffix import build_esa as jax_build_esa
+
+    monkeypatch.delenv("REVEAL_TPU_DSA_LCP_STRIDE", raising=False)
+    for name in ("banana", "samples_5x700_lower"):
+        T = TEXTS[name]
+        _equal(suffix.build_esa(T, "jax-dist", device="cpu"),
+               jax_build_esa(T, "jax-dist"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        suffix.build_esa(TEXTS["banana"], "jax-dist")
     with pytest.raises(RuntimeError, match="is_available"):
         suffix.build_esa(TEXTS["banana"], "jax")
     with pytest.raises(RuntimeError, match="is_available"):

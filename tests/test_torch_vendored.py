@@ -229,6 +229,7 @@ COPIED = {
         "suffix_array_np", "_rank_levels_np", "_stop_distance_np",
         "lcp_from_sa_np", "_lcp_from_levels_np", "sufcheck", "_num_levels"],
     "index.frontier": ["pack_segments"],
+    "parallel.dsa": ["_partners", "_network_layers"],
     "index.mums": [
         "_leftmax_vec", "pairwise_mums", "_psv_nsv", "lcp_intervals",
         "tuples_from_arrays", "multimums", "multimems",
@@ -288,8 +289,9 @@ def test_copied_function_equals_original(mod, name):
 # "x|y" is a line x followed by a line y.  A name "port:original" holds a
 # port function to an original of another name.
 CHANGED = {
-    # the native, numpy and device doubling routes, the last on a device
-    # given (build_esa_device); 'jax-dist' raises, and 'auto' is native
+    # the native, numpy and device doubling routes and the distributed
+    # build, the device ones on a device given or build_device's
+    # (build_esa_device; make_mesh(device=...)), and 'auto' is native
     # with no numpy fallback
     ("index.suffix", "build_esa"): [
         ('def build_esa(T_np: np.ndarray, backend: str = "auto"):',) * 2,
@@ -297,9 +299,7 @@ CHANGED = {
          "{'auto','jax','jax-dist','np'}.",
          "np' = pure-numpy"),
         ("oracle.  'auto' prefers native, then numpy.",) * 2,
-        ('if backend == "jax-dist":', "T_np, make_mesh(), "
-         "lcp_ckpt_stride=stride"),
-        (")",) * 2,
+        ("T_np, make_mesh(), lcp_ckpt_stride=stride",) * 2,
         ("try:|from ..native import build_esa_native",
          'return build_esa(T_np, backend="np")'),
         ("try:|return build_esa_jax(T_np)",
