@@ -1,7 +1,7 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi|frontier|single|align|esa|dist]
+                          [--only kernels|profile|multi|frontier|single|align|esa|dist|mesh]
                           [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
@@ -10,7 +10,9 @@ and the kernels against their plain versions, for work on a kernel.
 phases 1-2, the window-resolve checks of phase 3 and phase 5c;
 ``--only frontier`` phases 1-2 and 5d; ``--only single`` phases 1-2 and
 5e; ``--only align`` phases 1-2 and 7; ``--only esa`` phases 1-2 and 8;
-``--only dist`` phases 1-2 and 9.
+``--only dist`` phases 1-2, 5d (b)-(d) (phase 9 (f) and (h) hold the mesh
+frontier to their GFAs) and 9; ``--only mesh`` phases 1-2, 5d (b)-(d),
+9 (d) and 9 (f)-(h).
 ``--tree DIR`` imports ``reveal_tpu_torch`` from the checkout at DIR
 instead of this one (with ``--only profile``: the parent's forest timed
 beside this one's, in turns, on one card in one go).
@@ -68,7 +70,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and the native repair walk) through ``cli rem --frontier --device
    cuda``, the host engine refused inside it, node state and text held
    against the port's host engine and every path of the GFA spelling its
-   input: (a) ``simulate_population(6, 1_000_000, seed)``, past
+   input: (a) ``simulate_population(6, 500_000, seed)``, past
    ``--maxmums``: the multi loop declines (``ABORT_MAXMUMS``) and the
    frontier takes it; (b) a 2 x 2 Mbp pair, each genome cut into contigs
    of 1.9 Mbp, 80 kbp and the rest; (c) nine paths of 50 kbp, past the
@@ -174,10 +176,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    exact, the summed log-probability within 1e-5 of the native float64
    pair-HMM's, one launch each of the forward and backward DP kernels,
    each held against its plain version on the step's own batch; (d) gloo
-   worlds of 2 and 4 processes on the machine's CPU, the 6 x 100 kbp root
-   (npad 2^20) exactly the native build's on every rank, timed; (e) ``cli
+   worlds of 2 and 4 processes on the machine's CPU, the 6 x 50 kbp root
+   (npad 2^19) exactly the native build's on every rank, timed; (e) ``cli
    matches`` (and ``--rc``) with ``--backend jax --device cuda``: the
-   standard output of ``--backend native``.
+   standard output of ``--backend native``; (f) the mesh frontier
+   (``align_genomes(..., mesh=make_mesh(1))``: the per-level frontier's
+   slots sharded over the mesh's ranks, torch code over
+   ``torch.distributed``, no kernel of its own) in the world of one under
+   NCCL on phase 5d's cases (b) and (c): GFA bytes equal to the ones
+   phase 5d wrote, the single-device frontier's levels, candidates and
+   repair jobs, the stages' seconds, the collectives posted and the peak
+   device memory beside phase 5d's; (g) the dry run
+   (``parallel/dryrun.dryrun_multichip``: the sharded and distributed
+   builds, the pipeline step, a pairwise and a three-genome mesh ``rem``
+   against the single-device frontier) in the world of one; (h) in (d)'s
+   gloo worlds of 2 and 4 on the host's CPU, the mesh frontier on phase
+   5d (d)'s 4 x 50 kbp: every rank's GFA the card's bytes.
 
 Limits: M and G0 cells where kernel and plain are both above LOG_ZERO/2
 agree within 1e-4 * max(L1p, L2p) (float32 at magnitudes that grow with
@@ -1633,9 +1647,11 @@ def run_multi(seed, workdir):
 # (label, genomes, bp a genome, lengths of each genome's contigs but the
 # last, or None for one contig); every case at the CLI's defaults
 FRONTIER_CASES = (
-    # the main case: 101,731 root multiMUMs, past --maxmums, so the multi
-    # loop declines (ABORT_MAXMUMS) and the frontier takes the input
-    ("a", 6, 1_000_000, None),
+    # the main case: past --maxmums (about 100 kbp a genome at six
+    # genomes), so the multi loop declines (ABORT_MAXMUMS) and the frontier
+    # takes the input; 6 x 1 Mbp (101,731 root multiMUMs) until the script
+    # outgrew its time
+    ("a", 6, 500_000, None),
     # a bacterial pair with two plasmids: not a forest input
     ("b", 2, 2_000_000, (1_900_000, 80_000)),
     # nine paths, past the multi loop's eight
@@ -1708,7 +1724,8 @@ def run_frontier_case(label, fastas, total_bp, want, workdir, declines):
     seen, t_e2e = _frontier_cli(fastas, out)
     st = dict(devfrontier.LAST_STATS, e2e=t_e2e, host=t_host,
               peak=torch.cuda.max_memory_allocated(), nodes=seen["nodes"],
-              all_nodes=seen["all_nodes"])
+              all_nodes=seen["all_nodes"], fastas=fastas, gfa=out,
+              total_bp=total_bp)
     multi = dict(devloop_multi.LAST_STATS)
     if seen["state"] != host_state:
         raise AssertionError("frontier case %s: node state differs from the "
@@ -1751,37 +1768,38 @@ def frontier_gfa(fastas, device, out, **cfg):
     import torch
 
     from reveal_tpu_torch.align import rem
-    from reveal_tpu_torch.align.graphops import prune_nodes
-    from reveal_tpu_torch.core.io_gfa import seq2node, write_gfa
 
     ts, t, G, root_nodes = rem._read_inputs(fastas)
     idx = rem.ESAIndex.construct(ts, backend="native")
     idx.nodes = root_nodes
     rem._align_loop_frontier(G, t, idx, rem.PickerConfig(**cfg),
                              torch.device(device))
-    if len(G.graph["paths"]) > 2:
-        prune_nodes(G, T=idx.main.T)
-    seq2node(G, idx.main.T)
-    write_gfa(G, idx.main.T, outputfile=out)
-    with open(out, "rb") as fh:
-        return fh.read()
+    return rem.write_rem_gfa(G, idx, out)
 
 
-def run_frontier(seed, workdir):
-    """Phase 5d: cases (a)-(c) through ``cli rem --device cuda`` and (d)
-    the card against the CPU."""
+def run_frontier(seed, workdir, labels="abc"):
+    """Phase 5d: cases ``labels`` of (a)-(c) through ``cli rem --device
+    cuda`` and (d) the card against the CPU.  Returns {label: the case's
+    stats, its fastas and GFA} and, under "d", (d)'s fastas and the
+    card's GFA bytes at the defaults."""
+    cases = {}
     for label, n, length, cuts in FRONTIER_CASES:
+        if label not in labels:
+            continue
         fastas, total_bp, want = write_population(n, length, seed, workdir,
                                                   cuts=cuts)
-        run_frontier_case(label, fastas, total_bp, want, workdir,
-                          "ABORT_MAXMUMS" if label == "a" else
-                          "not eligible" if n > 8 else None)
+        cases[label] = run_frontier_case(
+            label, fastas, total_bp, want, workdir,
+            "ABORT_MAXMUMS" if label == "a" else
+            "not eligible" if n > 8 else None)
     n, length = FRONTIER_CARD_CPU
     fastas, _bp, _want = write_population(n, length, seed, workdir)
     for cfg in ({}, {"trim": False}):
         got = {dev: frontier_gfa(fastas, dev, os.path.join(
             workdir, "frontier_d_%s.gfa" % dev), **cfg)
             for dev in ("cuda", "cpu")}
+        if not cfg:
+            cases["d"] = dict(fastas=fastas, gfa=got["cuda"])
         if got["cuda"] != got["cpu"]:
             raise AssertionError("frontier case d%s: GFA on the card (%d "
                                  "bytes) differs from the CPU's (%d bytes)"
@@ -1790,6 +1808,7 @@ def run_frontier(seed, workdir):
         print("frontier case d (%d x %d bp%s): GFA on the card equal to the "
               "CPU's (%d bytes)" % (n, length, ", --notrim" if cfg else "",
                                     len(got["cuda"])))
+    return cases
 
 
 # ----------------------------------------------------------------------
@@ -3653,8 +3672,10 @@ def run_esa(seed, length, fastas, workdir, dev):
 # ----------------------------------------------------------------------
 # (a)'s roots: those of phase 8 at npad 2^22 and 2^25
 DIST_CASES = (("2 x 2 Mbp", 2, 2_000_000), ("2 x 16 Mbp", 2, 16_000_000))
-# (d): gloo worlds on the card machine's CPU, on the 6 x 100 kbp root
+# (d): gloo worlds on the card machine's CPU, and the root they build
+# (6 x 100 kbp, npad 2^20, until the script outgrew its time)
 DIST_WORLDS = (2, 4)
+DIST_WORLD_ROOT = (6, 50_000)
 # (c)'s real batch: pairs of 400-511 bp at the chain's 512 x 512 bucket
 STEP_PAIRS, STEP_SQUARE = 64, 512
 
@@ -3731,17 +3752,21 @@ def check_dist_esa(seed, dev):
     return root
 
 
-def run_dist_worlds(seed, workdir):
+def run_dist_worlds(seed, workdir, frontier):
     """Phase 9 (d): gloo worlds of ``DIST_WORLDS`` ranks on this
-    machine's CPU (processes started and stopped here), the 6 x 100 kbp
-    root (npad 2^20) built over each, exactly the native build on every
-    rank, timed around the call."""
+    machine's CPU (processes started and stopped here), the
+    ``DIST_WORLD_ROOT`` root built over each, exactly the native build on
+    every rank, timed around the call; (h) in the same worlds the mesh frontier
+    (``rem_on_world``) on phase 5d (d)'s 4 x 50 kbp: every rank's GFA
+    the bytes of the card's single-device frontier."""
+    from reveal_tpu_torch.align import rem
     from reveal_tpu_torch.index import suffix
     from reveal_tpu_torch.parallel import dsa
     from reveal_tpu_torch.parallel.distributed import World
 
-    T, _nsep = population_text(6, 100_000, seed)
+    T, _nsep = population_text(*DIST_WORLD_ROOT, seed)
     want = suffix.build_esa(T, "native")
+    card = frontier["d"]
     for P in DIST_WORLDS:
         store = os.path.join(workdir, "dist_world_%d" % P)
         t0 = time.perf_counter()
@@ -3753,18 +3778,120 @@ def run_dist_worlds(seed, workdir):
             t0 = time.perf_counter()
             res = world.run(dsa.build_on_world, T, device="cpu")
             secs = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh_rem = world.run(rem.rem_on_world, card["fastas"],
+                                 device="cpu")
+            rem_secs = time.perf_counter() - t0
         for rank, (got, st) in enumerate(res):
             _equal_esa("gloo world of %d, rank %d" % (P, rank), got, want)
         st = res[0][1]
-        print("distributed build 6 x 100 kbp (n %d, npad 2^%d) in a gloo "
+        print("distributed build %d x %d bp (n %d, npad 2^%d) in a gloo "
               "world of %d ranks on the host's CPU: every rank's SA, LCP, "
               "SAi equal to the native build's; %d rounds; %.6f s for the "
               "call (rank 0: rounds %.6f s, LCP %.6f s, gather %.6f s; %d "
               "p2p exchanges, widest %d slots = 3 x sh); the world up "
               "(started, joined, a 1 kbp build) in %.3f s"
-              % (st["n"], st["npad"].bit_length() - 1, P, st["rounds"], secs,
+              % (*DIST_WORLD_ROOT, st["n"], st["npad"].bit_length() - 1, P,
+                 st["rounds"], secs,
                  st["rounds_seconds"], st["lcp_seconds"], st["copy_seconds"],
                  st["p2p"], st["widest"], t_up))
+        for rank, r in enumerate(mesh_rem):
+            if r["gfa"] != card["gfa"]:
+                raise AssertionError(
+                    "mesh frontier in a gloo world of %d, rank %d: GFA (%d "
+                    "bytes) differs from the card's (%d bytes)"
+                    % (P, rank, len(r["gfa"]), len(card["gfa"])))
+        ms = mesh_rem[0]["stats"]
+        print("mesh frontier 4 x 50 kbp (phase 5d d) in a gloo world of %d "
+              "ranks on the host's CPU: every rank's GFA equal to the card's "
+              "single-device frontier (%d bytes); %.6f s for the call; rank "
+              "0: levels %d, enumerate %.6f s, pick + surgery %.6f s, apply "
+              "%.6f s, repair %.6f s; %d p2p, %d all_gathers, %d "
+              "all_reduces, widest %d slots (sh %d, %d padding slots)"
+              % (P, len(card["gfa"]), rem_secs, ms["levels"],
+                 ms["enumerate_seconds"], ms["pick_seconds"],
+                 ms["apply_seconds"], ms["repair_seconds"], ms["p2p"],
+                 ms["all_gathers"], ms["all_reduces"], ms["widest"],
+                 ms["mesh_sh"], ms["mesh_padded"]))
+
+
+# (f): phase 5d's cases through the mesh frontier in the world of one
+MESH_CASES = ("b", "c")
+
+
+def run_mesh_frontier(frontier, dev):
+    """Phase 9 (f): ``align_genomes(..., mesh=make_mesh(1))`` in the world
+    of one under NCCL on phase 5d's cases ``MESH_CASES``, the GFA written
+    as ``cli rem`` writes it: the bytes phase 5d's single-device frontier
+    wrote, its levels, candidates and repair jobs; levels, the stages'
+    seconds (each stage ends in a read on the host, the repairs in a
+    device sync), the collectives posted and the peak device memory
+    beside the single-device frontier's."""
+    import torch
+    import torch.distributed as dist
+
+    from reveal_tpu_torch.align import rem
+    from reveal_tpu_torch.index import devfrontier
+    from reveal_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, dev)
+    if dist.get_backend(mesh.group) != "nccl":
+        raise AssertionError("the mesh's backend is %s, not NCCL"
+                             % dist.get_backend(mesh.group))
+    out = {}
+    for label in MESH_CASES:
+        single = frontier[label]
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        G, idx = rem.align_genomes(single["fastas"], mesh=mesh)
+        gfa = rem.write_rem_gfa(G, idx, single["gfa"] + ".mesh.gfa")
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        st = dict(devfrontier.LAST_STATS)
+        del G, idx
+        if gfa != _read(single["gfa"]):
+            raise AssertionError("mesh frontier case %s: GFA (%d bytes) "
+                                 "differs from phase 5d's" % (label, len(gfa)))
+        for key in ("levels", "applies", "steps", "candidates",
+                    "repair_jobs"):
+            if st[key] != single[key]:
+                raise AssertionError("mesh frontier case %s: %s %d, the "
+                                     "single-device frontier's %d"
+                                     % (label, key, st[key], single[key]))
+        if st["mesh_P"] != 1 or st["p2p"] or st["mesh_replicated"]:
+            raise AssertionError("mesh frontier case %s: %r" % (label, st))
+        print("mesh frontier case %s (%d fastas, %d bp), world of one "
+              "(NCCL): GFA equal to phase 5d's (%d bytes); levels %d, apply "
+              "calls %d, candidates %d, repair jobs %d (the single-device "
+              "frontier's); enumerate %.6f s, pick + surgery %.6f s, apply "
+              "%.6f s, repair %.6f s, frontier %.6f s (single-device: "
+              "%.6f / %.6f / %.6f / %.6f / %.6f s), fastas to GFA %.6f s; %d "
+              "all_gathers, %d all_reduces, %d p2p; host syncs %d (%d); peak "
+              "device memory %.6f GB (single-device %.6f GB)"
+              % (label, len(single["fastas"]), single["total_bp"], len(gfa),
+                 st["levels"], st["applies"], st["candidates"],
+                 st["repair_jobs"], st["enumerate_seconds"],
+                 st["pick_seconds"], st["apply_seconds"],
+                 st["repair_seconds"], st["seconds"],
+                 single["enumerate_seconds"], single["pick_seconds"],
+                 single["apply_seconds"], single["repair_seconds"],
+                 single["seconds"], secs, st["all_gathers"],
+                 st["all_reduces"], st["p2p"], st["host_syncs"],
+                 single["host_syncs"], peak / 1e9, single["peak"] / 1e9))
+        out[label] = dict(st, peak=peak, e2e=secs)
+    return out
+
+
+def run_dryrun(dev):
+    """Phase 9 (g): the port's multichip dry run in the world of one."""
+    from reveal_tpu_torch.parallel.dryrun import dryrun_multichip
+    from reveal_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    line = dryrun_multichip(make_mesh(1, dev))
+    print("%s (a world of one under NCCL on %s) in %.3f s"
+          % (line, dev, time.perf_counter() - t0))
 
 
 def hold_dp(x, y, lx, ly, label):
@@ -3960,22 +4087,37 @@ def run_matches_backends(fastas, workdir, dev):
                  nat[2], jx[3]["rounds"]))
 
 
-def run_dist(seed, length, fastas, workdir, dev):
+def run_dist(seed, length, fastas, workdir, dev, frontier):
     """Phase 9: (a) the distributed build in a world of one under NCCL,
     (b) ``rem --backend jax-dist`` against the default backend, (c) the
-    pipeline step, (d) gloo worlds of 2 and 4 ranks on the CPU, (e)
-    ``matches --backend jax`` on the card.  Returns (b)'s launches and
-    (c)'s numbers."""
+    pipeline step, (f) the mesh frontier and (g) the dry run in the world
+    of one, (d) and (h) gloo worlds of 2 and 4 ranks on the CPU, (e)
+    ``matches --backend jax`` on the card.  ``frontier``: phase 5d's
+    cases.  Returns (b)'s launches and (c)'s numbers."""
     import torch.distributed as dist
 
     root = check_dist_esa(seed, dev)
     rem = run_rem_backends("2 x %d bp" % length, fastas, workdir, dev,
                            backend="jax-dist")
     step = run_pipeline_steps(root, seed, dev)
-    run_dist_worlds(seed, workdir)
+    run_mesh_frontier(frontier, dev)
+    run_dryrun(dev)
+    run_dist_worlds(seed, workdir, frontier)
     run_matches_backends(fastas, workdir, dev)
     dist.destroy_process_group()
     return rem, step
+
+
+def run_mesh(seed, workdir, dev):
+    """``--only mesh``: phase 5d (b)-(d), then phase 9 (f), (g) and the
+    gloo worlds of (d) with (h)."""
+    import torch.distributed as dist
+
+    frontier = run_frontier(seed, workdir, labels=MESH_CASES)
+    run_mesh_frontier(frontier, dev)
+    run_dryrun(dev)
+    run_dist_worlds(seed, workdir, frontier)
+    dist.destroy_process_group()
 
 
 def print_ptxas(report):
@@ -4000,7 +4142,7 @@ def main(argv=None):
     ap.add_argument("--length", type=int, default=2_000_000)
     ap.add_argument("--only", choices=["kernels", "profile", "multi",
                                        "frontier", "single", "align",
-                                       "esa", "dist"],
+                                       "esa", "dist", "mesh"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
@@ -4008,8 +4150,9 @@ def main(argv=None):
                          "phases 1-2, window-resolve and 5c; 'frontier': "
                          "phases 1-2 and 5d; 'single': phases 1-2 and 5e; "
                          "'align': phases 1-2 and 7; 'esa': phases 1-2 "
-                         "and 8; 'dist': phases 1-2 and 9; each prints no "
-                         "result lines")
+                         "and 8; 'dist': phases 1-2, 5d (b)-(d) and 9; "
+                         "'mesh': phases 1-2, 5d (b)-(d), 9 (d) and "
+                         "(f)-(h); each prints no result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
                          "parent's, to time it beside this one)")
@@ -4087,8 +4230,15 @@ def main(argv=None):
             print("chip_smoke --only esa: phases 1-2 and 8 passed")
             return
         if args.only == "dist":
-            run_dist(args.seed, args.length, fastas, wd, dev)
-            print("chip_smoke --only dist: phases 1-2 and 9 passed")
+            frontier = run_frontier(args.seed, wd, labels=MESH_CASES)
+            run_dist(args.seed, args.length, fastas, wd, dev, frontier)
+            print("chip_smoke --only dist: phases 1-2, 5d (b)-(d) and 9 "
+                  "passed")
+            return
+        if args.only == "mesh":
+            run_mesh(args.seed, wd, dev)
+            print("chip_smoke --only mesh: phases 1-2, 5d (b)-(d), 9 (d) and "
+                  "(f)-(h) passed")
             return
         def done(phase):
             print("chip_smoke: %s done, %.1f s since the start"
@@ -4107,7 +4257,7 @@ def main(argv=None):
         done("phase 5-5b")
         _case_a, multi = run_multi(args.seed, wd)
         done("phase 5c")
-        run_frontier(args.seed, wd)
+        frontier = run_frontier(args.seed, wd)
         done("phase 5d")
         single = run_single(args.seed, wd)
         done("phase 5e")
@@ -4125,7 +4275,8 @@ def main(argv=None):
         done("phase 7")
         esa = run_esa(args.seed, args.length, fastas, wd, dev)
         done("phase 8")
-        dist_rem, step = run_dist(args.seed, args.length, fastas, wd, dev)
+        dist_rem, step = run_dist(args.seed, args.length, fastas, wd, dev,
+                                  frontier)
         done("phase 9")
     # window-resolve runs the multi loop's repair rounds (case a's
     # launches and times at its shapes); it is off the pairwise rem path,

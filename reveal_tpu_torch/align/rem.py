@@ -982,14 +982,17 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
 
 
 def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
-                    cfg: PickerConfig, device):
-    """The routes of ``_align_loop_frontier`` (reference rem.py:895-903;
-    no mesh), all on ``device``: three or more samples take the
-    multi-genome loop; a pairwise fasta input of one sequence a sample
-    (trimmed, an integral ``--wpen``, ``minlength >= 1``) the host prefix
-    and device forest, what they decline the single-root loop
-    (``_rem_device_loop``); every other input, and every decline of the
-    loops, the per-level frontier."""
+                    cfg: PickerConfig, device, mesh=None):
+    """The routes of ``_align_loop_frontier`` (reference rem.py:895-903),
+    all on ``device``: three or more samples take the multi-genome loop;
+    a pairwise fasta input of one sequence a sample (trimmed, an integral
+    ``--wpen``, ``minlength >= 1``) the host prefix and device forest,
+    what they decline the single-root loop (``_rem_device_loop``); every
+    other input, and every decline of the loops, the per-level frontier.
+    With ``mesh`` the loops are skipped, as in the reference: the
+    per-level frontier runs sharded over the mesh's ranks."""
+    if mesh is not None:
+        return _align_loop_frontier(G, t, root, cfg, device, mesh=mesh)
     if root.main.nsamples > 2:
         return _rem_multi(G, t, root, cfg, device)
     steps = _rem_device_loop(G, t, root, cfg, device)
@@ -1004,7 +1007,7 @@ def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
 
 def _align_loop_frontier(
     G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: PickerConfig,
-    device, declined=None,
+    device, declined=None, mesh=None,
 ):
     """Device-resident level-synchronous recursion: T/SA/LCP/segment-ids
     live on ``device`` across levels (index/devfrontier.py).  Each level =
@@ -1019,7 +1022,14 @@ def _align_loop_frontier(
     text and graph regions), so the result is semantically identical to
     the LIFO loop; only GFA node numbering may differ.  ``declined``: why
     the device loops did not take this input, recorded as
-    ``devfrontier.LAST_STATS["fallback"]``."""
+    ``devfrontier.LAST_STATS["fallback"]``.
+
+    With ``mesh`` (``parallel/mesh.Mesh``; ``device`` is its device) the
+    frontier's slots are sharded over the mesh's ranks (reference
+    rem.py:903-915): every rank runs this loop on the same host state,
+    and every branch below reads values that are the same on every rank
+    (the candidates, the counts, the host's own decisions), so the ranks
+    post the same collectives in the same order."""
     import numpy as _np
 
     from ..index.devfrontier import DeviceFrontier, SegDesc
@@ -1042,6 +1052,7 @@ def _align_loop_frontier(
         main.nsamples,
         device,
         stats,
+        **({} if mesh is None else dict(mesh=mesh, nsep=main.nsep)),
     )
     multi_mode = main.nsamples > 2
 
@@ -1253,9 +1264,22 @@ def _read_inputs(inputfiles: List[str], multi: bool = False,
     return ts, t, G, root_nodes
 
 
+def _run_device(device, mesh):
+    """The device of a ``rem`` entry point: ``mesh.device`` with a mesh
+    (a ``device`` that names another one raises), else ``device`` (the
+    card unless the caller names the CPU)."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None and not devfrontier.same_device(device,
+                                                           mesh.device):
+        raise ValueError("device %s contradicts the mesh's device %s"
+                         % (device, mesh.device))
+    return mesh.device
+
+
 def align_genomes(
     inputfiles: List[str],
-    device="cuda",
+    device=None,
     contigs: bool = True,
     backend: str = "native",
     safile=None,
@@ -1265,6 +1289,7 @@ def align_genomes(
     frontier: bool = True,
     threads: int = 0,
     checkpoint: Optional[str] = None,
+    mesh=None,
     **cfgkw,
 ):
     """Alignment of two or more fasta or ``.gfa`` files -> (G, idx).
@@ -1278,20 +1303,24 @@ def align_genomes(
     ``_align_loop_levels``, else the serial LIFO ``_align_loop``;
     ``checkpoint`` (which needs ``frontier=False`` and no threads, as in
     the reference) logs every pick of the LIFO loop to that file and
-    resumes from it.  ``device`` is checked on every route.  ``backend``
+    resumes from it.  ``device`` (None: the card) is checked on every
+    route.  ``mesh`` (``parallel/mesh.make_mesh``; Python API only, as in
+    the reference) runs the per-level frontier sharded over its ranks on
+    its device, whatever ``frontier`` says: every rank of the mesh calls
+    this with the same arguments and gets the same graph.  ``backend``
     is the suffix-array build (``build_esa``; ``"jax"`` builds on
     ``device``), ``safile``/
     ``lcpfile`` load one and ``cache`` writes it; ``multi`` builds the
     parallel-edge graph (``MultiPanGraph``); ``cfgkw`` are
     ``PickerConfig`` fields."""
-    dev = resolve_device(device)
+    dev = _run_device(device, mesh)
     ts, t, G, root_nodes = _read_inputs(inputfiles, multi, contigs)
     idx = ESAIndex.construct(ts, backend=backend, safile=safile,
                              lcpfile=lcpfile, cache=cache, device=dev)
     idx.nodes = root_nodes
     cfg = PickerConfig(**cfgkw)
     if checkpoint:
-        if frontier or (threads and threads > 0):
+        if frontier or mesh is not None or (threads and threads > 0):
             raise ValueError(
                 "checkpoint/resume requires the serial LIFO driver "
                 "(drop --frontier/--threads)"
@@ -1305,8 +1334,8 @@ def align_genomes(
             _align_loop(G, t, idx, cfg, anchor_log=alog)
         finally:
             alog.close()
-    elif frontier:
-        _align_frontier(G, t, idx, cfg, dev)
+    elif frontier or mesh is not None:
+        _align_frontier(G, t, idx, cfg, dev, mesh)
     elif threads and threads > 0:
         _align_loop_levels(G, t, idx, cfg, threads)
     else:
@@ -1325,6 +1354,53 @@ def align_genomes_host(inputfiles: List[str], multi: bool = False,
     idx.nodes = root_nodes
     _align_loop(G, t, idx, PickerConfig(**cfgkw))
     return G, idx
+
+
+def node_state(G):
+    """The aligned node set of a graph: every interval node with its
+    offsets and aligned flag, sorted.  Every route of ``rem`` builds the
+    same one for an input; only the GFA's node numbering may differ."""
+    return sorted(
+        (n, tuple(sorted(G.nodes[n]["offsets"].items())),
+         G.nodes[n].get("aligned", 0))
+        for n in G.nodes if isinstance(n, tuple))
+
+
+def write_rem_gfa(G, idx, out) -> bytes:
+    """Write the graph of ``align_genomes`` to ``out`` as ``cli rem``
+    writes it (pruned when it has more than two paths, the node
+    sequences attached); returns the file's bytes."""
+    from ..core.io_gfa import seq2node, write_gfa
+
+    if len(G.graph["paths"]) > 2:
+        prune_nodes(G, T=idx.main.T)
+    seq2node(G, idx.main.T)
+    out = write_gfa(G, idx.main.T, outputfile=out)
+    with open(out, "rb") as fh:
+        return fh.read()
+
+
+def rem_on_world(inputfiles: List[str], n_devices=None, device="cuda",
+                 **kw):
+    """``align_genomes(inputfiles, mesh=make_mesh(n_devices, device),
+    **kw)`` on this rank of the running process group, the GFA written as
+    ``cli rem`` writes it into a temporary directory: a dict of the node
+    state (``node_state``), the text, the GFA's bytes and
+    ``devfrontier.LAST_STATS``, or None on a rank outside the mesh.  The
+    call a ``parallel.distributed.World`` sends its ranks; every rank of
+    the group must make it."""
+    import tempfile
+
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_devices, device)
+    if mesh is None:
+        return None
+    G, idx = align_genomes(inputfiles, mesh=mesh, **kw)
+    state, T = node_state(G), idx.main.T.copy()
+    with tempfile.TemporaryDirectory(prefix="rem_on_world_") as wd:
+        gfa = write_rem_gfa(G, idx, os.path.join(wd, "rem.gfa"))
+    return dict(state=state, T=T, gfa=gfa, stats=dict(devfrontier.LAST_STATS))
 
 
 def _multi_fast_eligible(
@@ -1596,20 +1672,24 @@ def align_seqs(
     maxsize: Optional[int] = None,
     trim: bool = True,
     backend: str = "auto",
-    device="cuda",
+    device=None,
+    mesh=None,
 ):
     """In-memory multi-alignment of (name, seq) tuples -> (G, idx).
 
     Mirrors rem.align (rem.py:616-712): one shared start/end marker node,
     prune_nodes afterwards, markers removed before returning.
 
-    The recursion runs on ``device`` as ``align_seqs(..., frontier=True)``
-    of the reference routes it (``_align_frontier``): the multi-genome
-    loop for three or more sequences, the host prefix and device forest
-    (then the single-root loop) for a plain pair, the per-level frontier
-    for the rest and for every decline of the loops.
+    The recursion runs on ``device`` (None: the card) as
+    ``align_seqs(..., frontier=True)`` of the reference routes it
+    (``_align_frontier``): the multi-genome loop for three or more
+    sequences, the host prefix and device forest (then the single-root
+    loop) for a plain pair, the per-level frontier for the rest and for
+    every decline of the loops.  With ``mesh`` the per-level frontier
+    runs sharded over the mesh's ranks on its device (reference
+    rem.py:1160-1161); every rank calls this with the same sequences.
     """
-    dev = resolve_device(device)
+    dev = _run_device(device, mesh)
     G, t, idx, startnode, endnode = _seqs_graph(aobjs, backend, dev)
 
     cfg = PickerConfig(
@@ -1624,7 +1704,7 @@ def align_seqs(
         maxsize=maxsize,
         trim=trim,
     )
-    _align_frontier(G, t, idx, cfg, dev)
+    _align_frontier(G, t, idx, cfg, dev, mesh)
 
     prune_nodes(G, T=idx.main.T)
 

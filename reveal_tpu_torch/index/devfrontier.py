@@ -33,8 +33,26 @@ and segment tables to few shapes to bound compiles; torch compiles nothing,
 and the padding rows (begins past the text, repair keys past every segment
 id, seg-map rows of -1) never change a result, so the tables go as they
 are.  The power-of-two repair windows bound compiles too; one flat gather
-moves fewer bytes.  The ``*_mesh`` functions are the mesh frontier
-(ROADMAP queue 1 item 9b) and are not ported yet.
+moves fewer bytes.
+
+The mesh frontier (``DeviceFrontier(..., mesh=, nsep=)``, the reference's
+``*_mesh`` functions) runs the same stages on one shard of the slots a
+rank of a ``parallel/mesh.Mesh``, with the collectives of
+``parallel/dsa.CollectiveKit``: ``enumerate_pairwise_mesh`` (halos of one
+slot, the text probes by the sort-based gather), ``enumerate_multi_mesh``
+and ``multi_windows_mesh`` (radius-W nearest-smaller-value scans over
+W-wide halos, sample ids from the replicated sentinel table, window rows
+by one all_reduce), ``apply_level_mesh`` (the running minima's
+cross-shard carry from one all_gather, the partition as the kit's
+network sort, counts by one all_reduce) and ``fetch_slots_mesh`` (the
+repair rows by one all_reduce; each rank writes back its own slots).
+The candidates come back in ascending global slot order by two
+all_gathers (the ranks' counts, then their rows): a rank's ``nonzero``
+is in slot order and the shards are in rank order, which gives the rows
+the reference compacts by a network sort and fetches by a psum.  Every
+rank gets the same candidates, counts and rows, and the host loop's
+branches read only those, so every rank posts every collective in the
+same order.
 """
 
 from __future__ import annotations
@@ -48,7 +66,8 @@ import numpy as np
 import torch
 
 from ..core.encoding import N_BYTE, SENTINEL
-from .devloop import arange32, seg_min_scan, shift1, shift_left, take
+from .devloop import (arange32, associative_scan, seg_min_scan, shift1,
+                      shift_left, take)
 
 log = logging.getLogger(__name__)
 
@@ -59,7 +78,10 @@ I64 = torch.int64
 # host syncs (the frontier's own copies between host and device and the
 # count reads of ``nonzero``), seconds per stage, and ``fallback``: why the
 # frontier ran in place of the multi-genome loop (None when it was the
-# route from the start)
+# route from the start); on a mesh also mesh_P, mesh_sh (slots a rank),
+# mesh_padded (dead slots added), mesh_replicated (multi enumerations run
+# whole on every rank) and the collectives this rank posted (p2p, sends,
+# recvs, all_gathers, all_reduces, widest)
 LAST_STATS = {}
 
 
@@ -98,13 +120,19 @@ class SegDesc:
 # device stages
 # ---------------------------------------------------------------------------
 
+def _left_max_test(a, b, ta, tb):
+    """The left-maximality test of the pair of suffixes (a, b), given the
+    bytes before them, ``ta`` = T[a - 1] and ``tb`` = T[b - 1]."""
+    lower = (ta >= ord("a")) & (ta <= ord("z"))
+    return ((a == 0) | (b == 0) | (ta != tb) | (ta == N_BYTE)
+            | (ta == SENTINEL) | lower)
+
+
 def _left_maximal(T, a, b):
     """The left-maximality test of the pair of suffixes (a, b)."""
     ta = take(T, (a - 1).clamp(min=0).reshape(-1)).reshape(a.shape)
     tb = take(T, (b - 1).clamp(min=0).reshape(-1)).reshape(b.shape)
-    lower = (ta >= ord("a")) & (ta <= ord("z"))
-    return ((a == 0) | (b == 0) | (ta != tb) | (ta == N_BYTE)
-            | (ta == SENTINEL) | lower)
+    return _left_max_test(a, b, ta, tb)
 
 
 def pair_mask(T, SA, LCP, nsep0: int, minl: int, SEG=None):
@@ -203,6 +231,67 @@ def enumerate_multi(T, SA, LCP, SEG, SO, minl: int, minn: int,
     return ls, lbs, ubs, sa_rows, so_rows, ok
 
 
+def _classify(SA, begins, ends, cls_tab):
+    """Each slot's class by its text position over the disjoint intervals
+    (0 outside them)."""
+    if not begins.numel():
+        return torch.zeros_like(SA)
+    ii = torch.searchsorted(begins, SA, right=True) - 1
+    ii_c = ii.clamp(0, begins.shape[0] - 1)
+    hit = (ii >= 0) & (SA < take(ends, ii_c))
+    return torch.where(hit, take(cls_tab, ii_c), 0).to(SA.dtype)
+
+
+def _child_lcp(cls, mins):
+    """Each slot's child LCP: its class's running minimum (columns for
+    classes 1, 2 and 4), 0 for the other classes."""
+    return torch.where(
+        cls == 1, mins[:, 0],
+        torch.where(cls == 2, mins[:, 1],
+                    torch.where(cls == 4, mins[:, 2], 0)))
+
+
+def _sort_key(SEG, cls, seg_map):
+    """Each slot's child id (``seg_map`` of its segment and class), SCAP
+    for a dead slot."""
+    SCAP = seg_map.shape[0]
+    nseg = torch.where(
+        (SEG >= 0) & (cls > 0) & (cls != 3),
+        seg_map[SEG.clamp(0, SCAP - 1).long(), cls.long()],
+        -1,
+    )
+    return torch.where(nseg < 0, SCAP, nseg).to(SEG.dtype)
+
+
+def _lowercase(T, tpos, mbegins, mends):
+    """T with its upper-case bytes at text positions ``tpos`` inside the
+    match intervals lowercased (reveal.c:1230-1234)."""
+    if not mbegins.numel():
+        return T
+    mi = torch.searchsorted(mbegins, tpos, right=True) - 1
+    mi_c = mi.clamp(0, mbegins.shape[0] - 1)
+    inm = (mi >= 0) & (tpos < take(mends, mi_c))
+    up = (T >= ord("A")) & (T <= ord("Z"))
+    return torch.where(inm & up, T + 32, T)
+
+
+def _repair_flags(new_sa, new_lcp, new_seg, seg_next, lcp_next, mk_key,
+                  edges):
+    """Per child id, its slots that need a boundary repair (reveal.c:
+    666-727 trigger): one of its OWN leading child's new match begins lies
+    inside (SA, SA + max(LCP, next LCP)), a bound over the (sid, begin)
+    keys from each side; ``edges``: the children's slot ranges."""
+    win = torch.maximum(
+        new_lcp, torch.where(seg_next == new_seg, lcp_next, new_lcp))
+    qkey = new_seg.to(I64) << 32
+    klo = torch.searchsorted(mk_key, qkey + new_sa.to(I64), right=True)
+    khi = torch.searchsorted(mk_key, qkey + (new_sa + win).to(I64))
+    cross = ((khi > klo) & (new_seg >= 0)).to(new_sa.dtype)
+    ccum = torch.cat([cross.new_zeros(1),
+                      torch.cumsum(cross, 0, dtype=new_sa.dtype)])
+    return take(ccum, edges[1:]) - take(ccum, edges[:-1])
+
+
 def apply_level(T, SA, LCP, SEG, begins, ends, cls_tab, seg_map, mbegins,
                 mends, mk_key):
     """One level's split on the device (``_get_apply``): returns (T, SA,
@@ -220,35 +309,15 @@ def apply_level(T, SA, LCP, SEG, begins, ends, cls_tab, seg_map, mbegins,
     tables classify nothing; an empty key table flags nothing."""
     n = SA.shape[0]
     dev = SA.device
-
-    # ---- classify slots by text position over disjoint intervals ------
-    if begins.numel():
-        ii = torch.searchsorted(begins, SA, right=True) - 1
-        ii_c = ii.clamp(0, begins.shape[0] - 1)
-        hit = (ii >= 0) & (SA < take(ends, ii_c))
-        cls = torch.where(hit, take(cls_tab, ii_c), 0).to(SA.dtype)
-    else:
-        cls = torch.zeros_like(SA)
+    cls = _classify(SA, begins, ends, cls_tab)
 
     # ---- per-class child LCP: segmented running-min over parents ------
     segstart = SEG != shift1(SEG, -2)
     cls_prev = shift1(cls, 0)
     resets = torch.stack([segstart | (cls_prev == c) for c in (1, 2, 4)], 1)
-    mins = seg_min_scan(LCP[:, None].expand(n, 3), resets)
-    newlcp = torch.where(
-        cls == 1, mins[:, 0],
-        torch.where(cls == 2, mins[:, 1],
-                    torch.where(cls == 4, mins[:, 2], 0)))
-
-    # ---- new segment ids ------------------------------------------------
+    newlcp = _child_lcp(cls, seg_min_scan(LCP[:, None].expand(n, 3), resets))
+    sortkey = _sort_key(SEG, cls, seg_map)
     SCAP = seg_map.shape[0]
-    seg_c = SEG.clamp(0, SCAP - 1).long()
-    nseg = torch.where(
-        (SEG >= 0) & (cls > 0) & (cls != 3),
-        seg_map[seg_c, cls.long()],
-        -1,
-    )
-    sortkey = torch.where(nseg < 0, SCAP, nseg)
 
     # ---- stable partition by child id -----------------------------------
     skey, perm = torch.sort(sortkey, stable=True)
@@ -262,30 +331,268 @@ def apply_level(T, SA, LCP, SEG, begins, ends, cls_tab, seg_map, mbegins,
     edges = torch.searchsorted(skey, arange32(SCAP + 1, dev))
     counts = edges[1:] - edges[:-1]
 
-    # ---- lowercase matched text (reveal.c:1230-1234) --------------------
-    if mbegins.numel():
-        tpos = arange32(T.shape[0], dev)
-        mi = torch.searchsorted(mbegins, tpos, right=True) - 1
-        mi_c = mi.clamp(0, mbegins.shape[0] - 1)
-        inm = (mi >= 0) & (tpos < take(mends, mi_c))
-        up = (T >= ord("A")) & (T <= ord("Z"))
-        T = torch.where(inm & up, T + 32, T)
-
-    # ---- boundary-repair candidates (reveal.c:666-727 trigger) ----------
-    # a slot needs repair when one of ITS OWN leading child's new match
-    # begins lies inside (SA, SA + max(LCP, next LCP)): a bound over the
-    # (sid, begin) keys from each side
-    nxt_same = shift_left(new_seg, -3) == new_seg
-    win = torch.maximum(
-        new_lcp, torch.where(nxt_same, shift_left(new_lcp, 0), new_lcp))
-    qkey = new_seg.to(I64) << 32
-    klo = torch.searchsorted(mk_key, qkey + new_sa.to(I64), right=True)
-    khi = torch.searchsorted(mk_key, qkey + (new_sa + win).to(I64))
-    cross = ((khi > klo) & (new_seg >= 0)).to(SA.dtype)
-    ccum = torch.cat([cross.new_zeros(1), torch.cumsum(cross, 0,
-                                                       dtype=SA.dtype)])
-    rcount = take(ccum, edges[1:]) - take(ccum, edges[:-1])
+    T = _lowercase(T, arange32(T.shape[0], dev), mbegins, mends)
+    rcount = _repair_flags(new_sa, new_lcp, new_seg, shift_left(new_seg, -3),
+                           shift_left(new_lcp, 0), mk_key, edges)
     return T, new_sa, new_lcp, new_seg, counts.to(SA.dtype), rcount
+
+
+# ---------------------------------------------------------------------------
+# the mesh frontier: the same stages on this rank's shard of the slots
+# ---------------------------------------------------------------------------
+
+def _global_slots(kit, device):
+    """The global slot indices of this rank's shard."""
+    return arange32(kit.sh, device) + kit.me * kit.sh
+
+
+def _probe_text(kit, T, a, b):
+    """(T[a - 1], T[b - 1]) for global positions a, b (one per slot of
+    this shard) by the kit's sort-based gather, clamped at 0 as the
+    single-device stages read them."""
+    idt = kit.idt
+    ta, tb = kit.dist_gather2(
+        T.to(idt), (a - 1).clamp(min=0).to(idt),
+        (b - 1).clamp(min=0).to(idt),
+        _global_slots(kit, T.device).to(idt))
+    return ta.to(a.dtype), tb.to(a.dtype)
+
+
+def _gather_rows(kit, rows):
+    """Every rank's ``rows`` (k, c_rank) side by side in rank order: the
+    ranks' column counts in one all_gather, then the rows padded to the
+    largest count in a second.  A rank's rows are in ascending global
+    slot order and the shards are in rank order, so the result is in
+    ascending global slot order.  Every rank reads the same counts, so
+    all skip the second gather together when no rank has a row."""
+    counts = kit.all_gather(torch.tensor([rows.shape[1]], dtype=I64,
+                                         device=rows.device))[:, 0].tolist()
+    width = max(counts)
+    if width == 0:
+        return rows
+    pad = rows.new_zeros((rows.shape[0], width - rows.shape[1]))
+    every = kit.all_gather(torch.cat([rows, pad], 1))
+    return torch.cat([every[r, :, :c] for r, c in enumerate(counts)], 1)
+
+
+def enumerate_pairwise_mesh(kit, T, SA, LCP, SEG, nsep0: int, minl: int):
+    """``enumerate_pairwise`` over a mesh (``_get_enum_pairwise_mesh``,
+    reference devfrontier.py:175-293): this rank's shards of T/SA/LCP/SEG
+    in, every rank gets the whole (4, count) int32 tensor of (slot, l, a,
+    b) in ascending global slot order.  Collectives, in order: one prev
+    halo of (SA, SEG, LCP) and one next halo of LCP (zero on the last
+    shard, as the single-device stage reads past the end), the two text
+    probes by ``dist_gather2``, and the candidates by ``_gather_rows``
+    (the reference compacts by a network sort on ``cand ? slot : BIG``
+    and fetches a prefix by a psum: the same rows in the same order)."""
+    first, last = kit.me == 0, kit.me == kit.P - 1
+    iar_g = _global_slots(kit, SA.device)
+    h = kit.prev_halo(torch.stack([SA, SEG, LCP], 1))[0]
+    prev = torch.cat([h[0:1], SA[:-1]])
+    seg_prev = torch.cat([SEG.new_full((1,), -9) if first else h[1:2],
+                          SEG[:-1]])
+    lcp_prev = torch.cat([h[2:3], LCP[:-1]])
+    nx = kit.next_halo(LCP)
+    lcp_next = torch.cat([LCP[1:], LCP.new_zeros(1) if last else nx])
+    l = LCP
+    straddle = (SA > nsep0) != (prev > nsep0)
+    a = torch.minimum(SA, prev)
+    b = torch.maximum(SA, prev)
+    ta, tb = _probe_text(kit, T, a, b)
+    mask = (
+        (iar_g >= 1)
+        & (SEG >= 0)
+        & (SEG == seg_prev)
+        & (l >= minl)
+        & (l > 0)
+        & straddle
+        & _left_max_test(a, b, ta, tb)
+        & (lcp_prev < l) & (lcp_next < l)
+    )
+    loc = torch.nonzero(mask).squeeze(1)
+    return _gather_rows(kit, torch.stack(
+        [take(x, loc) for x in (iar_g, LCP, a, b)]))
+
+
+def enumerate_multi_mesh(kit, T, SA, LCP, SEG, nsep, nreal: int, minl: int,
+                         minn: int, nsamples_main: int, W: int):
+    """The candidate intervals of ``enumerate_multi`` over a mesh
+    (``_get_enum_multi_mesh``, reference devfrontier.py:442-599): every
+    rank gets the (4, count) int32 tensor of (slot, l, lb, ub) of the
+    intervals that pass the length and width gates, in ascending global
+    slot order, and keeps its shard's per-slot left-maximality flags of
+    the pair (slot - 1, slot) and sample ids for ``multi_windows_mesh``.
+
+    A kept interval (width <= ``nsamples_main`` <= W) has its PSV within
+    W slots below and its NSV within W above, so a radius-W scan over
+    W-wide halo blocks of (LCP, SA) finds them (one stacked exchange a
+    direction, LCP -1 past either end: the pointer doubling's stop
+    values); a slot whose nearest smaller value lies farther gets the
+    sentinel ``slot -+ (W + 1)``, which fails the width gate as the true
+    wider interval does.  Needs ``kit.sh >= W``.  Sample ids come from
+    ``searchsorted`` over the replicated sentinel table ``nsep`` (the
+    reference pads it to a power of two for its compiles; padding
+    entries never answer a position below ``nreal``).  Returns (rows,
+    lm, ssid)."""
+    if kit.sh < W:
+        raise ValueError("a shard of %d slots is narrower than the "
+                         "multi enumeration's radius %d" % (kit.sh, W))
+    iar_g = _global_slots(kit, SA.device)
+    lb, ub, a_pair = _radius_intervals(kit, LCP, SA, W)
+    width = ub - lb + 1
+    cand = (
+        (SEG >= 0)
+        & (LCP >= max(minl, 1))
+        & (width >= minn)
+        & (width <= nsamples_main)
+    )
+    loc = torch.nonzero(cand).squeeze(1)
+    rows = torch.stack([take(x, loc) for x in (iar_g, LCP, lb, ub)])
+    del width, cand, loc, lb, ub
+    ta, tb = _probe_text(kit, T, a_pair, SA)
+    lm = _left_max_test(a_pair, SA, ta, tb)
+    ssid = torch.searchsorted(nsep, SA.clamp(0, nreal - 1)).to(SA.dtype)
+    return _gather_rows(kit, rows), lm, ssid
+
+
+def _radius_intervals(kit, LCP, SA, W: int):
+    """(lb, ub) of each slot's LCP interval by radius-W nearest-smaller-
+    value scans over W-wide halo blocks of (LCP, SA), and SA of the slot
+    before each slot (``a`` of its adjacent pair)."""
+    first, last = kit.me == 0, kit.me == kit.P - 1
+    sh = kit.sh
+    iar_g = _global_slots(kit, SA.device)
+    hp = kit.prev_halo(torch.stack([LCP, SA], 1), W)
+    hn = kit.next_halo(torch.stack([LCP, SA], 1), W)
+    neg = LCP.new_full((W,), -1)
+    lcp_ext = torch.cat([neg if first else hp[:, 0], LCP,
+                         neg if last else hn[:, 0]])
+    dp = torch.zeros_like(LCP)
+    dn = torch.zeros_like(LCP)
+    for d in range(W, 0, -1):
+        dp = torch.where(lcp_ext[W - d: W - d + sh] < LCP, d, dp)
+        dn = torch.where(lcp_ext[W + d: W + d + sh] < LCP, d, dn)
+    lb = torch.where(dp > 0, iar_g - dp, iar_g - W - 1).clamp(min=0)
+    ub = torch.where(dn > 0, iar_g + dn, iar_g + W + 1) - 1
+    return lb, ub, torch.cat([hp[-1:, 1], SA[:-1]])
+
+
+def multi_windows_mesh(kit, SA, lm, ssid, qlb, qub, W: int, ncols: int):
+    """The (K, W) window rows and ``ok`` flags of the fetched intervals
+    (``_get_win_multi_mesh``, reference devfrontier.py:602-671): each
+    rank adds its overlap of every row's columns [lb, lb + W), clamped
+    below ``ncols`` (the single-device stage's padded length), into a
+    zero buffer, and one all_reduce of the three stacked planes gives
+    every rank (sa_rows, so_rows, ok): distinct samples over the in-row
+    window and at least one left-maximal adjacent pair in it."""
+    sh = kit.sh
+    dev = SA.device
+    K = qlb.shape[0]
+    cols = qlb[:, None] + arange32(W, dev)[None, :]
+    loc = cols.clamp(0, ncols - 1) - kit.me * sh
+    own = (loc >= 0) & (loc < sh)
+    locc = loc.clamp(0, sh - 1).reshape(-1)
+    planes = torch.stack([take(x, locc).reshape(K, W)
+                          for x in (SA, ssid, lm.to(SA.dtype))])
+    sa_rows, so_rows, lm_rows = kit.all_reduce(
+        torch.where(own, planes, 0))
+    inrow = cols <= qub[:, None]
+    so_pad = torch.where(inrow, so_rows, -1 - arange32(W, dev)[None, :])
+    so_sorted = torch.sort(so_pad, dim=1).values
+    distinct = (so_sorted[:, 1:] != so_sorted[:, :-1]).all(dim=1)
+    ok = distinct & ((lm_rows[:, 1:] > 0) & inrow[:, 1:]).any(dim=1)
+    return sa_rows, so_rows, ok
+
+
+def _child_lcp_mesh(kit, LCP, SEG, cls):
+    """The child LCP of each slot of this shard: the three per-class
+    segmented running minima with the cross-shard carry."""
+    first = kit.me == 0
+    h = kit.prev_halo(torch.stack([SEG, cls], 1))[0]
+    seg_prev = torch.cat([SEG.new_full((1,), -2) if first else h[0:1],
+                          SEG[:-1]])
+    cls_prev = torch.cat([h[1:2], cls[:-1]])  # zero-filled on shard 0
+    segstart = SEG != seg_prev
+    resets = torch.stack([segstart | (cls_prev == c) for c in (1, 2, 4)],
+                         1).to(LCP.dtype)
+
+    def combine(x, y):
+        (m1, f1), (m2, f2) = x, y
+        return torch.where(f2 > 0, m2, torch.minimum(m1, m2)), f1 | f2
+
+    mins, seen = associative_scan(
+        combine, (LCP[:, None].expand(LCP.shape[0], 3), resets))
+    summ = kit.all_gather(torch.stack([mins[-1], seen[-1]]))  # (P, 2, 3)
+    carry = mins.new_full((3,), 2**30)
+    for j in range(kit.me):
+        carry = torch.where(summ[j, 1] > 0, summ[j, 0],
+                            torch.minimum(carry, summ[j, 0]))
+    return _child_lcp(cls, torch.where(seen > 0, mins,
+                                       torch.minimum(carry[None, :], mins)))
+
+
+def apply_level_mesh(kit, T, SA, LCP, SEG, begins, ends, cls_tab, seg_map,
+                     mbegins, mends, mk_key):
+    """``apply_level`` over a mesh (``_get_apply_mesh``, reference
+    devfrontier.py:814-1041): this rank's shards in and out, the tables
+    replicated; ``counts`` and ``rcount`` summed over the ranks.
+
+    Collectives, in order: a prev halo of (SEG, class); one all_gather of
+    the (2, 3) per-shard summaries of the three running minima (the last
+    minimum, and whether the shard has a reset), from which a shard's
+    carry is the latest earlier shard with a reset and the minimum over
+    the reset-free shards after it; the global stable partition by
+    (child id, global slot) as the kit's network sort (dead slots under
+    key SCAP sort last); a prev halo of the new SEG (a child's first
+    slot gets LCP 0); a next halo of (new SEG, new LCP) for the repair
+    flags; one all_reduce of (counts, rcount)."""
+    first, last = kit.me == 0, kit.me == kit.P - 1
+    dev = SA.device
+    iar_g = _global_slots(kit, dev)
+    cls = _classify(SA, begins, ends, cls_tab)
+    newlcp = _child_lcp_mesh(kit, LCP, SEG, cls)
+    sortkey = _sort_key(SEG, cls, seg_map)
+    del cls
+    SCAP = seg_map.shape[0]
+
+    # ---- global stable partition by child id ----------------------------
+    skey, _slot, new_sa, new_lcp = kit.make_net_sort(kit.sh)(
+        (sortkey, iar_g, SA, newlcp), 2)
+    del sortkey, newlcp, _slot
+    new_seg = torch.where(skey >= SCAP, -1, skey)
+    h2 = kit.prev_halo(new_seg)
+    sprev = torch.cat([new_seg.new_full((1,), -2) if first else h2,
+                       new_seg[:-1]])
+    new_lcp = torch.where((new_seg != sprev) | (new_seg < 0), 0, new_lcp)
+    # skey is sorted: this shard holds child s's slots [edges[s], edges[s+1])
+    edges = torch.searchsorted(skey, arange32(SCAP + 1, dev))
+    counts = edges[1:] - edges[:-1]
+
+    T = _lowercase(T, iar_g, mbegins, mends)
+    nh = kit.next_halo(torch.stack([new_seg, new_lcp], 1))[0]
+    seg_next = torch.cat([new_seg[1:], new_seg.new_full((1,), -3) if last
+                          else nh[0:1]])
+    lcp_next = torch.cat([new_lcp[1:], new_lcp.new_zeros(1) if last
+                          else nh[1:2]])
+    rcount = _repair_flags(new_sa, new_lcp, new_seg, seg_next, lcp_next,
+                           mk_key, edges)
+    both = kit.all_reduce(torch.stack([counts.to(SA.dtype), rcount]))
+    return T, new_sa, new_lcp, new_seg, both[0], both[1]
+
+
+def fetch_slots_mesh(kit, arrays, idx):
+    """The values of ``arrays`` (this rank's shards, int32) at the global
+    slots ``idx`` (replicated, int64), on every rank: each rank fills in
+    the slots it holds and one all_reduce adds them up
+    (``_get_repair_rows_mesh``'s fetch, reference devfrontier.py:1511-
+    1521).  Returns (values (len(arrays), len(idx)), this rank's local
+    indices of the slots it holds)."""
+    loc = idx - kit.me * kit.sh
+    own = (loc >= 0) & (loc < kit.sh)
+    locc = loc.clamp(0, kit.sh - 1)
+    planes = torch.stack([take(a, locc) for a in arrays])
+    mine = torch.nonzero(own).squeeze(1)
+    return kit.all_reduce(torch.where(own, planes, 0)), mine, take(loc, mine)
 
 
 # ---------------------------------------------------------------------------
@@ -356,10 +663,33 @@ def _repair_host_plain(SA: np.ndarray, LCP: np.ndarray, begins) -> None:
 class DeviceFrontier:
     """Owns the packed device arrays of the recursion on ``device`` and
     the per-level stages.  ``stats`` (a dict) receives the host syncs it
-    makes and the candidates and repair jobs it handles."""
+    makes and the candidates and repair jobs it handles.
+
+    With ``mesh`` (``parallel/mesh.Mesh``) the slots are sharded over the
+    mesh's ranks: every rank of it builds the frontier from the same
+    arrays, uploads only its shard (slots ``[rank * sh, (rank + 1) *
+    sh)``) to ``mesh.device`` and runs the ``*_mesh`` stages; what comes
+    back to the host (candidates, counts, repaired rows) is the same on
+    every rank, so the host loop makes the same calls everywhere.
+    ``device`` is None or ``mesh.device``.  The padded length is raised
+    to a multiple of the ranks, and to ``max(2, nsamples)`` slots a rank
+    for the multi enumeration's halo (``stats["mesh_padded"]``: the dead
+    slots added, SEG = -1; no stage reads them as more than the padding
+    the single-device frontier has).  ``nsep`` (the sample sentinel
+    table) gives the multi enumeration its sample ids; without it every
+    multi enumeration gathers the shards and runs ``enumerate_multi`` on
+    every rank (``stats["mesh_replicated"]`` counts them).  ``stats``
+    also gets the mesh's collectives: p2p, all_gathers, all_reduces and
+    the widest exchange (slots of one array)."""
 
     def __init__(self, T, SA, LCP, SO, nsep0: int, nsamples: int, device,
-                 stats=None):
+                 stats=None, mesh=None, nsep=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and not same_device(device, mesh.device):
+                raise ValueError("device %s contradicts the mesh's device %s"
+                                 % (device, mesh.device))
+            device = mesh.device
         self.device = torch.device(device)
         self.n = int(len(SA))
         self.nsep0 = int(nsep0)
@@ -369,23 +699,46 @@ class DeviceFrontier:
             self.stats.setdefault(k, 0)
         # pad every device array to a power of two (dead tail: SEG = -1):
         # the multi enumeration's round count depends on the padded length
-        npad = _next_pow2(self.n)
+        npad = self.npad = _next_pow2(self.n)
         if npad > 2**30:
             raise ValueError("a text of %d bytes is past the int32 state of "
                              "the frontier (2^30 slots at most)" % self.n)
-        T_p = np.zeros(npad, dtype=np.uint8)
-        T_p[: len(T)] = np.asarray(T, dtype=np.uint8)
-        SA_p = np.full(npad, self.n - 1, dtype=np.int32)
-        SA_p[: self.n] = np.asarray(SA, dtype=np.int32)
-        LCP_p = np.zeros(npad, dtype=np.int32)
-        LCP_p[: self.n] = np.asarray(LCP, dtype=np.int32)
-        SO_p = np.zeros(npad, dtype=np.int32)
-        SO_p[: len(SO)] = np.asarray(SO, dtype=np.int32)
-        SEG_p = np.full(npad, -1, dtype=np.int32)
-        SEG_p[: self.n] = 0
-        words = self._upload(np.concatenate([SA_p, LCP_p, SO_p, SEG_p]))
-        self.SA, self.LCP, self.SO, self.SEG = words.view(4, npad)
-        self.T = self._upload(T_p)
+        lo, width = 0, npad
+        if mesh is not None:
+            from ..parallel.dsa import CollectiveKit
+
+            P = mesh.size
+            width = max(-(-npad // P), 2, self.nsamples)
+            lo = mesh.rank * width
+            self.nsep = (None if nsep is None else
+                         torch.as_tensor(np.asarray(nsep, dtype=np.int32),
+                                         device=self.device))
+            # the gather's sort-back key reaches 3 * P * sh
+            self.kit = CollectiveKit(
+                mesh, width, I64 if 3 * P * width >= 2**31 else torch.int32)
+            self.stats.update(mesh_P=P, mesh_sh=width,
+                              mesh_padded=P * width - npad,
+                              mesh_replicated=0)
+            self.stats.update(self.kit.stats)
+            if P * width > npad:
+                log.info("mesh frontier: %d slots padded to %d (%d ranks of "
+                         "%d slots)", npad, P * width, P, width)
+        hi = lo + width
+
+        def local(arr, fill, dtype):
+            """This rank's slots [lo, hi) of ``arr`` padded with ``fill``."""
+            out = np.full(width, fill, dtype=dtype)
+            part = np.asarray(arr)[lo:hi]
+            out[: len(part)] = part
+            return out
+
+        n = self.n
+        SEG_p = local(np.zeros(n, np.int32), -1, np.int32)
+        words = self._upload(np.concatenate([
+            local(SA, n - 1, np.int32), local(LCP, 0, np.int32),
+            local(SO, 0, np.int32), SEG_p]))
+        self.SA, self.LCP, self.SO, self.SEG = words.view(4, width)
+        self.T = self._upload(local(T, 0, np.uint8))
         # segment ids SEG may hold: 0 only at the root
         self._seg_ids = 1
         # the repair walks' scratch inverse array (every SA value < n;
@@ -400,14 +753,57 @@ class DeviceFrontier:
         self.stats["host_syncs"] += 1
         return x.cpu().numpy()
 
+    def _posted(self):
+        """Copy the mesh's collective counts into ``stats``."""
+        if self.mesh is not None:
+            self.stats.update(self.kit.stats)
+
+    def state(self):
+        """(T, SA, LCP, SEG) of the whole padded layout as numpy arrays
+        (``npad`` slots; on a mesh one all_gather of the shards, the same
+        on every rank)."""
+        words = torch.stack([self.T.to(self.SA.dtype), self.SA, self.LCP,
+                             self.SEG])
+        if self.mesh is not None:
+            words = self.kit.all_gather(words).permute(1, 0, 2).reshape(4, -1)
+            self._posted()
+        T, SA, LCP, SEG = self._fetch(words[:, : self.npad])
+        return T.astype(np.uint8), SA, LCP, SEG
+
+    def load(self, T, SA, LCP, SEG):
+        """Replace the layout by ``state()``'s arrays (``npad`` slots):
+        this rank's shard of them (the mesh's padding slots dead)."""
+        width = self.SA.shape[0]
+        lo = width * (0 if self.mesh is None else self.mesh.rank)
+
+        def local(arr, fill):
+            out = torch.full((width,), fill, dtype=torch.int32)
+            part = torch.as_tensor(
+                np.asarray(arr, dtype=np.int32)[lo: lo + width])
+            out[: len(part)] = part
+            return out.to(self.device)
+
+        self.T = local(T, 0).to(torch.uint8)
+        self.SA = local(SA, self.n - 1)
+        self.LCP = local(LCP, 0)
+        self.SEG = local(SEG, -1)
+        self._seg_ids = max(int(np.max(SEG)) + 1, 1)
+
     # -- enumeration ------------------------------------------------------
     def enumerate_pairwise(self, minl: int):
         """(slots, l, a, b) numpy int32 of every live segment's candidates
         in ascending slot order: per segment, getmums_rem's order."""
-        out = enumerate_pairwise(self.T, self.SA, self.LCP, self.SEG,
-                                 self.nsep0, minl)
-        self.stats["host_syncs"] += 1  # nonzero's count
-        slots, l, a, b = self._fetch(torch.stack(out))
+        if self.mesh is not None:
+            out = enumerate_pairwise_mesh(self.kit, self.T, self.SA,
+                                          self.LCP, self.SEG, self.nsep0,
+                                          minl)
+            self._posted()
+            self.stats["host_syncs"] += 1  # the all-gathered counts
+        else:
+            out = torch.stack(enumerate_pairwise(
+                self.T, self.SA, self.LCP, self.SEG, self.nsep0, minl))
+            self.stats["host_syncs"] += 1  # nonzero's count
+        slots, l, a, b = self._fetch(out)
         self.stats["candidates"] += len(slots)
         return slots, l, a, b
 
@@ -415,9 +811,21 @@ class DeviceFrontier:
         """LCP-interval multiMUM candidates: (l, lb, ub, sa_rows, so_rows)
         numpy int32 of the intervals that pass (before the host's dedup)."""
         W = max(2, self.nsamples)
+        if self.mesh is not None and self.nsep is not None:
+            return self._enumerate_multi_mesh(minl, minn, W)
+        if self.mesh is not None:
+            # no sentinel table: the whole layout on every rank
+            T, SA, LCP, SEG, SO = (x[: self.npad] for x in self.kit.all_gather(
+                torch.stack([self.T.to(self.SA.dtype), self.SA, self.LCP,
+                             self.SEG, self.SO])).permute(1, 0, 2).reshape(
+                                 5, -1))
+            T = T.to(torch.uint8)
+            self.stats["mesh_replicated"] += 1
+            self._posted()
+        else:
+            T, SA, LCP, SEG, SO = self.T, self.SA, self.LCP, self.SEG, self.SO
         ls, lbs, ubs, sa_rows, so_rows, ok = enumerate_multi(
-            self.T, self.SA, self.LCP, self.SEG, self.SO, minl, minn,
-            self.nsamples, W)
+            T, SA, LCP, SEG, SO, minl, minn, self.nsamples, W)
         self.stats["host_syncs"] += 1  # nonzero's count
         rows = self._fetch(torch.cat(
             [torch.stack([ls, lbs, ubs, ok.to(ls.dtype)], 1), sa_rows,
@@ -426,6 +834,26 @@ class DeviceFrontier:
         self.stats["candidates"] += len(rows)
         return (rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 4:4 + W],
                 rows[:, 4 + W:])
+
+    def _enumerate_multi_mesh(self, minl, minn, W):
+        rows, lm, ssid = enumerate_multi_mesh(
+            self.kit, self.T, self.SA, self.LCP, self.SEG, self.nsep,
+            self.n, minl, minn, self.nsamples, W)
+        self.stats["host_syncs"] += 1  # the all-gathered counts
+        if rows.shape[1] == 0:
+            self._posted()
+            e = np.empty(0, np.int32)
+            e2 = np.empty((0, W), np.int32)
+            return e, e, e, e2, e2
+        sa_rows, so_rows, ok = multi_windows_mesh(
+            self.kit, self.SA, lm, ssid, rows[2], rows[3], W, self.npad)
+        self._posted()
+        got = self._fetch(torch.cat(
+            [rows[1:].T, ok.to(rows.dtype)[:, None], sa_rows, so_rows], 1))
+        got = got[got[:, 3] > 0]
+        self.stats["candidates"] += len(got)
+        return (got[:, 0], got[:, 1], got[:, 2], got[:, 4:4 + W],
+                got[:, 4 + W:])
 
     # -- level application ------------------------------------------------
     def apply_level(
@@ -454,8 +882,14 @@ class DeviceFrontier:
         tabs = list(torch.split(words, [len(p) for p in parts]))
         tabs[3] = tabs[3].view(SCAP, 5)
         mk_key = (tabs[6].to(I64) << 32) + tabs[7].to(I64)
-        self.T, self.SA, self.LCP, self.SEG, counts, rcount = apply_level(
-            self.T, self.SA, self.LCP, self.SEG, *tabs[:6], mk_key)
+        if self.mesh is not None:
+            out = apply_level_mesh(self.kit, self.T, self.SA, self.LCP,
+                                   self.SEG, *tabs[:6], mk_key)
+            self._posted()
+        else:
+            out = apply_level(self.T, self.SA, self.LCP, self.SEG, *tabs[:6],
+                              mk_key)
+        self.T, self.SA, self.LCP, self.SEG, counts, rcount = out
         self._seg_ids = SCAP
         counts, rcount = self._fetch(torch.stack([counts, rcount]))
         return counts, rcount
@@ -465,7 +899,8 @@ class DeviceFrontier:
         """Batched boundary repair (jobs: [(start, n, begins)]): every
         affected child's slots in ONE gather and one copy to the host, the
         native repair walk child by child, then one copy back and ONE
-        scatter."""
+        scatter.  On a mesh the gather is ``fetch_slots_mesh`` (every rank
+        walks every child) and each rank writes back the slots it holds."""
         jobs = [(s, n, b) for s, n, b in jobs if n > 0 and b]
         self.stats["repair_jobs"] += len(jobs)
         if not jobs:
@@ -473,8 +908,14 @@ class DeviceFrontier:
         idx = np.concatenate([np.arange(s, s + n, dtype=np.int64)
                               for s, n, _b in jobs])
         idx_d = self._upload(idx)
-        sa_all, lcp_all = self._fetch(
-            torch.stack([self.SA[idx_d], self.LCP[idx_d]])).astype(np.int64)
+        if self.mesh is not None:
+            rows, mine, loc = fetch_slots_mesh(self.kit, (self.SA, self.LCP),
+                                               idx_d)
+            self._posted()
+        else:
+            rows, mine, loc = torch.stack(
+                [self.SA[idx_d], self.LCP[idx_d]]), None, idx_d
+        sa_all, lcp_all = self._fetch(rows).astype(np.int64)
         off = 0
         for _s, n, begins in jobs:
             sa = sa_all[off: off + n]
@@ -482,8 +923,26 @@ class DeviceFrontier:
             _repair_host(sa, lcp, sorted(begins), self._scratch)
             off += n
         rows = self._upload(np.stack([sa_all, lcp_all]).astype(np.int32))
-        self.SA.index_copy_(0, idx_d, rows[0])
-        self.LCP.index_copy_(0, idx_d, rows[1])
+        if mine is not None:
+            rows = rows[:, mine]
+        self.SA.index_copy_(0, loc, rows[0])
+        self.LCP.index_copy_(0, loc, rows[1])
+        if self.device.type == "cuda":
+            # the repair stage's clock stops when its writes are done
+            torch.cuda.synchronize(self.device)
+
+
+def same_device(a, b) -> bool:
+    """Whether device names ``a`` and ``b`` are one device (a card given
+    without its index is the current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cpu":
+        return True
+    cur = torch.cuda.current_device()
+    return (a.index if a.index is not None else cur) == (
+        b.index if b.index is not None else cur)
 
 
 def clock(stats, key, t0):

@@ -72,8 +72,8 @@ from ..core.encoding import N_BYTE, SENTINEL
 # the last build's counters on this rank: n, npad, P, sh, nlev, rounds
 # (doubling rounds run), int64, stride; the collectives it posted: p2p
 # (exchanges in which it sent or received), sends, recvs, all_gathers
-# (the last gather of the shards included), widest (most slots of one
-# array in one exchange); rounds_seconds, lcp_seconds,
+# (the last gather of the shards included), all_reduces (none), widest
+# (most slots of one array in one exchange); rounds_seconds, lcp_seconds,
 # copy_seconds (a synchronised clock)
 LAST_STATS = {}
 
@@ -141,8 +141,8 @@ def _sort_order(keys):
 class CollectiveKit:
     """``collective_kit`` (dsa.py:142-334) over ``mesh`` with shard width
     ``sh`` and index dtype ``idt``: the halo moves, the comparator-network
-    sort and the sort-based gather, with this rank's counts of what it
-    posted."""
+    sort, the sort-based gather, ``all_gather`` and ``all_reduce`` (JAX's
+    ``psum``), with this rank's counts of what it posted."""
 
     def __init__(self, mesh, sh: int, idt=torch.int32):
         self.mesh, self.sh, self.idt = mesh, sh, idt
@@ -150,7 +150,7 @@ class CollectiveKit:
         self.npad_c = sh * self.P
         self.layers = _network_layers(self.P)
         self.stats = dict(p2p=0, sends=0, recvs=0, all_gathers=0,
-                          widest=0)
+                          all_reduces=0, widest=0)
 
     def ppermute(self, x, perm):
         """``jax.lax.ppermute``: ``x`` goes from src to dst for each (src,
@@ -182,6 +182,14 @@ class CollectiveKit:
         dist.all_gather(out, x.contiguous(), group=self.mesh.group)
         self.stats["all_gathers"] += 1
         return torch.stack(out)
+
+    def all_reduce(self, x):
+        """``jax.lax.psum``: the sum of every rank's ``x`` (a new
+        tensor)."""
+        out = x.clone()
+        dist.all_reduce(out, group=self.mesh.group)
+        self.stats["all_reduces"] += 1
+        return out
 
     def from_ahead(self, x, q):
         """Local block of the shard q places ahead (zero-fill past end)."""
@@ -237,13 +245,17 @@ class CollectiveKit:
 
         return net_sort
 
-    def prev_halo(self, x):
-        """Last element of the previous shard (zero-fill on shard 0)."""
-        return self.ppermute(x[-1:], [(j, j + 1) for j in range(self.P - 1)])
+    def prev_halo(self, x, width: int = 1):
+        """The last ``width`` elements of the previous shard (zero-fill on
+        shard 0)."""
+        return self.ppermute(x[-width:],
+                             [(j, j + 1) for j in range(self.P - 1)])
 
-    def next_halo(self, x):
-        """First element of the next shard (zero-fill on shard P-1)."""
-        return self.ppermute(x[:1], [(j, j - 1) for j in range(1, self.P)])
+    def next_halo(self, x, width: int = 1):
+        """The first ``width`` elements of the next shard (zero-fill on
+        shard P-1)."""
+        return self.ppermute(x[:width],
+                             [(j, j - 1) for j in range(1, self.P)])
 
     def dist_gather2(self, val, qa, qb, iar_g):
         """(val_global[qa[j]], val_global[qb[j]]) in one sort pass
