@@ -1121,54 +1121,37 @@ def run_rem(fastas, total_bp, workdir):
     return launches, port_gfa, t_e2e
 
 
-# the forest's stage functions, in the order of a level
-FOREST_STAGES = ("enumerate_candidates", "trim_dim", "chain_dense",
-                 "log_anchors", "children", "split_level", "repair_pass")
-
-
 # the profiler's names of a kernel launch from the host
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaLaunchKernelExC")
 
 
-def clock_stages(module, names, run):
-    """``run()`` with a synchronised host clock around every call of the
-    functions ``names`` of ``module``; returns ({name: seconds},
-    {name: calls}, the seconds of the whole run)."""
-    import torch
+def run_traced(run):
+    """``run()`` with the program's stage spans on (``core/trace.py``);
+    returns (the last command's record ``trace.LAST_STATS``, the seconds
+    of the run)."""
+    from reveal_tpu_torch.core import trace
 
-    originals = {name: getattr(module, name) for name in names}
-    secs = dict.fromkeys(names, 0.0)
-    calls = dict.fromkeys(names, 0)
-
-    def clocked(name):
-        fn = originals[name]
-
-        def call(*args, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn(*args, **kw)
-            torch.cuda.synchronize()
-            secs[name] += time.perf_counter() - t0
-            calls[name] += 1
-            return res
-        return call
-
-    for name in names:
-        setattr(module, name, clocked(name))
+    was = trace.enable(True)
     try:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
     finally:
-        for name, fn in originals.items():
-            setattr(module, name, fn)
-    return secs, calls, wall
+        trace.enable(was)
+    return dict(trace.LAST_STATS), wall
 
 
-def _stage_text(secs, calls):
-    return ", ".join("%s %.6f s (%d calls)" % (n, secs[n], calls[n])
-                     for n in secs)
+def _trace_text(rec, prefix):
+    """The record's spans whose label starts with ``prefix``."""
+    from reveal_tpu_torch.core import trace
+
+    return ", ".join(
+        "%s %.6f s (self %.6f s, %d calls, %d reads waiting %.6f s)"
+        % (label, rec[label], rec[label + ".self"], rec[label + ".calls"],
+           rec[label + ".reads"], rec[label + ".wait"])
+        for label in trace.LABELS
+        if label.startswith(prefix) and label in rec)
 
 
 def trace_counts(prof, mark=None):
@@ -1331,12 +1314,8 @@ def attribute_syncs(module, fn_name, run):
 
 def profile_forest(fastas, total_bp, workdir, label):
     """``rem`` three times more through the CLI, the forest watched: a
-    warm-up run, a run with the forest's stage functions clocked
-    (``clock_stages``), and a run with ``rem_device_forest`` traced
-    (``profile_loop``).  Only names that this checkout and its parent
-    both have (the stage functions, ``rem_device_forest``,
-    ``LAST_STATS``) are used, so that ``--tree`` can run it on the
-    parent."""
+    warm-up run, a run with the program's stage spans on (``run_traced``),
+    and a run with ``rem_device_forest`` traced (``profile_loop``)."""
     from reveal_tpu_torch import cli
     from reveal_tpu_torch.index import devloop
 
@@ -1349,16 +1328,15 @@ def profile_forest(fastas, total_bp, workdir, label):
     t0 = time.perf_counter()
     rem()
     t_first = time.perf_counter() - t0
-    secs, calls, t_e2e = clock_stages(devloop, FOREST_STAGES, rem)
+    rec, t_e2e = run_traced(rem)
     st = dict(devloop.LAST_STATS)
-    rest = t_e2e - st["forest_seconds"] - st["host_prefix_seconds"]
     print("%s rem (first run in the process %.6f s end to end), then with "
-          "a synchronised host clock around each call of the forest's "
-          "stages: %s; forest %.6f s, host prefix %.6f s, the rest of rem "
-          "(fasta read, host ESA, replay, GFA write) %.6f s, end to end "
-          "%.6f s (%.6f Mbp/s)"
-          % (label, t_first, _stage_text(secs, calls),
-             st["forest_seconds"], st["host_prefix_seconds"], rest, t_e2e,
+          "the stage spans on: %s; a level's stages: %s; %d host syncs; "
+          "forest %.6f s, host prefix %.6f s, end to end %.6f s (%.6f "
+          "Mbp/s)"
+          % (label, t_first, _trace_text(rec, "rem."),
+             _trace_text(rec, "level."), st["host_syncs"],
+             st["forest_seconds"], st["host_prefix_seconds"], t_e2e,
              total_bp / 1e6 / t_e2e))
     prof = profile_loop(devloop, "rem_device_forest", rem)
     print_profile("%s forest" % label, prof)
@@ -1380,10 +1358,6 @@ MULTI_CASES = (
     ("b", 8, 50_000, None),      # D = 8 paths, the loop's full width
     ("c", 3, 300_000, 0),        # 4 paths of 3 samples
 )
-# the multi loop's stage functions, in the order of a level
-MULTI_STAGES = ("enumerate_multi", "select_subsets", "trim_dim_multi",
-                "same_paths", "chain_dense_multi", "log_anchors_multi",
-                "children_multi", "split_multi", "repair_pass_multi")
 
 
 def write_population(n, length, seed, workdir, split=None, cuts=None):
@@ -1492,17 +1466,19 @@ def _cli_rem(fastas, out):
 
 
 def clock_multi(fastas, workdir):
-    """Case (a) again with a synchronised host clock around every call
-    of the loop's stage functions."""
+    """Case (a) again with the program's stage spans on (``run_traced``)."""
     from reveal_tpu_torch.index import devloop_multi
 
-    secs, calls, _wall = clock_stages(
-        devloop_multi, MULTI_STAGES,
+    rec, _wall = run_traced(
         _cli_rem(fastas, os.path.join(workdir, "clock.gfa")))
     loop = devloop_multi.LAST_STATS["loop_seconds"]
-    print("multi case a with a synchronised host clock around each call of "
-          "the loop's stages: %s; loop %.6f s (the stages %.6f s)"
-          % (_stage_text(secs, calls), loop, sum(secs.values())))
+    stages = sum(v for k, v in rec.items()
+                 if k.startswith("multi.") and k.count(".") == 1)
+    print("multi case a with the stage spans on: %s; a level's stages: "
+          "%s; loop %.6f s (the stages %.6f s), %d host syncs waiting "
+          "%.6f s"
+          % (_trace_text(rec, "rem."), _trace_text(rec, "multi."), loop,
+             stages, rec["reads"], rec["wait"]))
 
 
 def profile_multi(label, fastas, workdir):
@@ -1822,9 +1798,6 @@ def run_frontier(seed, workdir, labels="abc"):
 # ABORT_CHAIN_ROUNDS at level 0), so the per-level frontier takes it;
 # (c) the default route with the forest stood in to decline
 SINGLE_CASES = (("a", 500_000), ("b", 1_000_000), ("c", 200_000))
-# the level loop's stage functions with the flat chain, in level order
-SINGLE_STAGES = ("enumerate_candidates", "trim_dim", "chain_flat",
-                 "log_anchors", "children", "split_level", "repair_pass")
 
 
 @contextlib.contextmanager
@@ -1963,11 +1936,11 @@ def run_single_a(fastas, total_bp, workdir):
         _single_cli(fastas, os.path.join(workdir, "single_a_run.gfa"),
                     "full")
 
-    secs, calls, t_clock = clock_stages(devloop, SINGLE_STAGES, full)
-    print("single-root case a with a synchronised host clock around each "
-          "call of the loop's stages: %s; loop %.6f s, end to end %.6f s"
-          % (_stage_text(secs, calls), devloop.LAST_STATS["loop_seconds"],
-             t_clock))
+    rec, t_clock = run_traced(full)
+    print("single-root case a with the stage spans on: %s; a level's "
+          "stages: %s; loop %.6f s, end to end %.6f s"
+          % (_trace_text(rec, "rem."), _trace_text(rec, "level."),
+             devloop.LAST_STATS["loop_seconds"], t_clock))
     torch.cuda.reset_peak_memory_stats()
     prof = profile_split(devloop, "rem_device_loop", "chain_flat", full,
                          lambda res: res[-1])
@@ -4155,7 +4128,8 @@ def main(argv=None):
                          "(f)-(h); each prints no result lines")
     ap.add_argument("--tree", default=None,
                     help="import reveal_tpu_torch from this checkout (a "
-                         "parent's, to time it beside this one)")
+                         "parent's, to time it beside this one; the "
+                         "profile phase needs its core/trace.py)")
     args = ap.parse_args(argv)
 
     import torch

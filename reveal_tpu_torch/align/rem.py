@@ -52,6 +52,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..core import trace
 from ..core.io_fasta import fasta_reader
 from ..core.io_gfa import read_gfa_into
 from ..core.textstore import TextStore
@@ -819,11 +820,12 @@ def _rem_device_hybrid(
     t_snap = T.copy()
     sai_snap = SAi.copy()
     t0 = time.perf_counter()
-    res = rem2_defer_native(
-        T, root.SA, root.LCP, SAi, nsep0, cfg.minlength, cfg.trim,
-        cfg.maxmums, int(cfg.wscore), float(cfg.wpen), cfg.pcutoff,
-        defer_max, threads=min(os.cpu_count() or 1, 8),
-    )
+    with trace.span("rem.host_prefix"):
+        res = rem2_defer_native(
+            T, root.SA, root.LCP, SAi, nsep0, cfg.minlength, cfg.trim,
+            cfg.maxmums, int(cfg.wscore), float(cfg.wpen), cfg.pcutoff,
+            defer_max, threads=min(os.cpu_count() or 1, 8),
+        )
     t_host = time.perf_counter() - t0
     if res is None:
         T[:] = t_snap
@@ -834,10 +836,11 @@ def _rem_device_hybrid(
         return None
     anchors, defers = res
     t0 = time.perf_counter()
-    dres = devloop.rem_device_forest(
-        T, defers, nsep0, cfg.minlength, cfg.maxmums,
-        int(cfg.wscore), int(cfg.wpen), device=device,
-    )
+    with trace.span("rem.forest"):
+        dres = devloop.rem_device_forest(
+            T, defers, nsep0, cfg.minlength, cfg.maxmums,
+            int(cfg.wscore), int(cfg.wpen), device=device,
+        )
     devloop.LAST_STATS.update(
         host_prefix_seconds=t_host,
         forest_seconds=time.perf_counter() - t0,
@@ -861,7 +864,8 @@ def _rem_device_hybrid(
         else:
             parts.append(row[None, :])
     allanch = np.concatenate(parts) if parts else np.zeros((0, 7), np.int64)
-    _rem2_replay(G, allanch)
+    with trace.span("rem.replay"):
+        _rem2_replay(G, allanch)
     log.debug(
         "device hybrid: %d host + %d device anchors (%d deferred "
         "segments, %d device levels), graph replayed",
@@ -925,17 +929,18 @@ def _rem_device_loop(
 
     main = root.main
     t0 = time.perf_counter()
-    res = devloop.rem_device_loop(
-        main.T,
-        root.SA,
-        root.LCP,
-        int(main.nsep[0]),
-        cfg.minlength,
-        cfg.maxmums,
-        int(cfg.wscore),
-        int(cfg.wpen),
-        device=device,
-    )
+    with trace.span("rem.single_root"):
+        res = devloop.rem_device_loop(
+            main.T,
+            root.SA,
+            root.LCP,
+            int(main.nsep[0]),
+            cfg.minlength,
+            cfg.maxmums,
+            int(cfg.wscore),
+            int(cfg.wpen),
+            device=device,
+        )
     st = devloop.LAST_STATS
     st["loop_seconds"] = time.perf_counter() - t0
     if res is None:
@@ -946,7 +951,8 @@ def _rem_device_loop(
     st["fallback"] = "; ".join(declined) or None
     anchors, T_out, levels = res
     main.T[:] = T_out  # device lowercased text -> host mirror
-    _rem2_replay(G, anchors)
+    with trace.span("rem.replay"):
+        _rem2_replay(G, anchors)
     log.debug(
         "device loop: %d anchors in %d levels, graph replayed",
         len(anchors),
@@ -978,7 +984,8 @@ def _rem_multi(G: PanGraph, t: IntervalIndex, root: ESAIndex,
     st["fallback"] = why
     log.info("multi loop declined (%s): per-level frontier on %s", why,
              device)
-    return _align_loop_frontier(G, t, root, cfg, device, declined=why)
+    with trace.span("rem.frontier"):
+        return _align_loop_frontier(G, t, root, cfg, device, declined=why)
 
 
 def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
@@ -992,7 +999,8 @@ def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
     With ``mesh`` the loops are skipped, as in the reference: the
     per-level frontier runs sharded over the mesh's ranks."""
     if mesh is not None:
-        return _align_loop_frontier(G, t, root, cfg, device, mesh=mesh)
+        with trace.span("rem.frontier"):
+            return _align_loop_frontier(G, t, root, cfg, device, mesh=mesh)
     if root.main.nsamples > 2:
         return _rem_multi(G, t, root, cfg, device)
     steps = _rem_device_loop(G, t, root, cfg, device)
@@ -1002,7 +1010,8 @@ def _align_frontier(G: PanGraph, t: IntervalIndex, root: ESAIndex,
     if why:
         log.info("device loops declined (%s): per-level frontier on %s",
                  why, device)
-    return _align_loop_frontier(G, t, root, cfg, device, declined=why)
+    with trace.span("rem.frontier"):
+        return _align_loop_frontier(G, t, root, cfg, device, declined=why)
 
 
 def _align_loop_frontier(
@@ -1077,159 +1086,158 @@ def _align_loop_frontier(
         starts = _np.array([segs[s].start for s in sids])
 
         # ---- enumerate all segments in one dispatch -------------------
-        t0 = time.perf_counter()
-        mums_for = {}
-        need = any(not segs[s].skipmums for s in sids)
-        if need and multi_mode:
-            ls, lbs, ubs, sa_rows, so_rows = dev.enumerate_multi(
-                cfg.minlength, cfg.minn
-            )
-            if len(ls):
-                trip = _np.stack([ls, lbs, ubs], axis=1)
-                _, uniq = _np.unique(trip, axis=0, return_index=True)
-                uniq = _np.sort(uniq)
-                order = uniq[
-                    _np.lexsort(
-                        (ubs[uniq], lbs[uniq], ls[uniq])
-                    )
-                ]
-                owner = _np.searchsorted(
-                    starts, lbs[order], side="right"
-                ) - 1
-                for k, oi in zip(order.tolist(), owner.tolist()):
-                    w = int(ubs[k] - lbs[k] + 1)
-                    coords = tuple(
-                        (int(so_rows[k, c]), int(sa_rows[k, c]))
-                        for c in range(w)
-                    )
-                    mums_for.setdefault(sids[oi], []).append(
-                        (int(ls[k]), w, coords)
-                    )
-        elif need:
-            slots, l, a, b = dev.enumerate_pairwise(cfg.minlength)
-            owner = _np.searchsorted(starts, slots, side="right") - 1
-            for k in range(len(slots)):
-                mums_for.setdefault(sids[int(owner[k])], []).append(
-                    (int(l[k]), 2, ((0, int(a[k])), (1, int(b[k]))))
+        with trace.span("frontier.enumerate", stats, "enumerate_seconds"):
+            mums_for = {}
+            need = any(not segs[s].skipmums for s in sids)
+            if need and multi_mode:
+                ls, lbs, ubs, sa_rows, so_rows = dev.enumerate_multi(
+                    cfg.minlength, cfg.minn
                 )
-        t0 = devfrontier.clock(stats, "enumerate_seconds", t0)
+                if len(ls):
+                    trip = _np.stack([ls, lbs, ubs], axis=1)
+                    _, uniq = _np.unique(trip, axis=0, return_index=True)
+                    uniq = _np.sort(uniq)
+                    order = uniq[
+                        _np.lexsort(
+                            (ubs[uniq], lbs[uniq], ls[uniq])
+                        )
+                    ]
+                    owner = _np.searchsorted(
+                        starts, lbs[order], side="right"
+                    ) - 1
+                    for k, oi in zip(order.tolist(), owner.tolist()):
+                        w = int(ubs[k] - lbs[k] + 1)
+                        coords = tuple(
+                            (int(so_rows[k, c]), int(sa_rows[k, c]))
+                            for c in range(w)
+                        )
+                        mums_for.setdefault(sids[oi], []).append(
+                            (int(ls[k]), w, coords)
+                        )
+            elif need:
+                slots, l, a, b = dev.enumerate_pairwise(cfg.minlength)
+                owner = _np.searchsorted(starts, slots, side="right") - 1
+                for k in range(len(slots)):
+                    mums_for.setdefault(sids[int(owner[k])], []).append(
+                        (int(l[k]), 2, ((0, int(a[k])), (1, int(b[k]))))
+                    )
 
         # ---- pick + graph surgery per segment in level order ----------
-        S = len(sids)
-        seg_map = _np.full((S, 5), -1, dtype=_np.int32)
-        sid_index = {s: i for i, s in enumerate(sids)}
-        intervals = []
-        matches_all = []
-        repair_jobs = []  # (lead_sid, sorted own match begins)
-        child_descs = {}
-        next_sid = 0
+        with trace.span("frontier.pick", stats, "pick_seconds"):
+            S = len(sids)
+            seg_map = _np.full((S, 5), -1, dtype=_np.int32)
+            sid_index = {s: i for i, s in enumerate(sids)}
+            intervals = []
+            matches_all = []
+            repair_jobs = []  # (lead_sid, sorted own match begins)
+            child_descs = {}
+            next_sid = 0
 
-        for s in sids:
-            seg = segs[s]
-            if seg.skipmums:
-                precomputed = True
-                mums = seg.skipmums
-            else:
-                precomputed = False
-                mums = mums_for.get(s, [])
+            for s in sids:
+                seg = segs[s]
+                if seg.skipmums:
+                    precomputed = True
+                    mums = seg.skipmums
+                else:
+                    precomputed = False
+                    mums = mums_for.get(s, [])
 
-            pick = picker(
-                mums, seg, precomputed=precomputed, minlength=cfg.minlength
-            )
-            if not pick:
-                continue
-            splitmum, skipleft, skipright = pick
-            ml, mn, spd = splitmum
-            (
-                leading,
-                trailing,
-                matching,
-                rest,
-                merged,
-                newleft,
-                newright,
-            ) = graphalign(G, t, seg, splitmum)
-            steps += 1
-            sp_positions = [p for gid, p in spd]
-            own_matches = sorted(matching)
-            matches_all.extend(own_matches)
-            for bgn, end in matching:
-                intervals.append((bgn, end, 3))
-
-            def _mk(desc_nodes, cls, left, right, skip):
-                nonlocal next_sid
-                for bgn, end in desc_nodes:
-                    intervals.append((bgn, end, cls))
-                if not desc_nodes:
-                    return None
-                sid = next_sid
-                next_sid += 1
-                seg_map[sid_index[s], cls] = sid
-                seen = {int(main.SO[bgn]) for bgn, _e in desc_nodes}
-                child_descs[sid] = SegDesc(
-                    sid=sid,
-                    start=0,
-                    n=0,
-                    depth=seg.depth + 1,
-                    nsamples=len(seen),
-                    nodes=set(desc_nodes),
-                    left_node=left,
-                    right_node=right,
-                    skipmums=list(skip or []),
+                pick = picker(
+                    mums, seg, precomputed=precomputed, minlength=cfg.minlength
                 )
-                return sid
+                if not pick:
+                    continue
+                splitmum, skipleft, skipright = pick
+                ml, mn, spd = splitmum
+                (
+                    leading,
+                    trailing,
+                    matching,
+                    rest,
+                    merged,
+                    newleft,
+                    newright,
+                ) = graphalign(G, t, seg, splitmum)
+                steps += 1
+                sp_positions = [p for gid, p in spd]
+                own_matches = sorted(matching)
+                matches_all.extend(own_matches)
+                for bgn, end in matching:
+                    intervals.append((bgn, end, 3))
 
-            # child creation order mirrors the push order parallel,
-            # leading, trailing (reveal.c:1295-1324)
-            _mk(rest, 4, seg.left_node, seg.right_node, [])
-            lead_sid = _mk(leading, 1, seg.left_node, newright, skipleft)
-            _mk(trailing, 2, newleft, seg.right_node, skipright)
-            if lead_sid is not None:
-                repair_jobs.append(
-                    (lead_sid, [bgn for bgn, _e in own_matches])
-                )
+                def _mk(desc_nodes, cls, left, right, skip):
+                    nonlocal next_sid
+                    for bgn, end in desc_nodes:
+                        intervals.append((bgn, end, cls))
+                    if not desc_nodes:
+                        return None
+                    sid = next_sid
+                    next_sid += 1
+                    seg_map[sid_index[s], cls] = sid
+                    seen = {int(main.SO[bgn]) for bgn, _e in desc_nodes}
+                    child_descs[sid] = SegDesc(
+                        sid=sid,
+                        start=0,
+                        n=0,
+                        depth=seg.depth + 1,
+                        nsamples=len(seen),
+                        nodes=set(desc_nodes),
+                        left_node=left,
+                        right_node=right,
+                        skipmums=list(skip or []),
+                    )
+                    return sid
 
-        # host text mirror follows the device lowercase (prune_nodes and
-        # later library use read main.T); matched regions lowercase even
-        # when no child segments remain (reveal.c:1230-1234 runs
-        # unconditionally)
-        for bgn, end in matches_all:
-            tt = main.T[bgn:end]
-            low = (tt >= ord("A")) & (tt <= ord("Z"))
-            tt[low] += 32
-        t0 = devfrontier.clock(stats, "pick_seconds", t0)
+                # child creation order mirrors the push order parallel,
+                # leading, trailing (reveal.c:1295-1324)
+                _mk(rest, 4, seg.left_node, seg.right_node, [])
+                lead_sid = _mk(leading, 1, seg.left_node, newright, skipleft)
+                _mk(trailing, 2, newleft, seg.right_node, skipright)
+                if lead_sid is not None:
+                    repair_jobs.append(
+                        (lead_sid, [bgn for bgn, _e in own_matches])
+                    )
+
+            # host text mirror follows the device lowercase (prune_nodes and
+            # later library use read main.T); matched regions lowercase even
+            # when no child segments remain (reveal.c:1230-1234 runs
+            # unconditionally)
+            for bgn, end in matches_all:
+                tt = main.T[bgn:end]
+                low = (tt >= ord("A")) & (tt <= ord("Z"))
+                tt[low] += 32
 
         if next_sid == 0:
             break
 
         # ---- apply split + lowercase on device ------------------------
-        counts, rcount = dev.apply_level(
-            intervals, seg_map, matches_all, repair_jobs
-        )
-        stats["applies"] += 1
-        t0 = devfrontier.clock(stats, "apply_seconds", t0)
+        with trace.span("frontier.apply", stats, "apply_seconds"):
+            counts, rcount = dev.apply_level(
+                intervals, seg_map, matches_all, repair_jobs
+            )
+            stats["applies"] += 1
 
-        offsets = _np.zeros(len(counts) + 1, dtype=_np.int64)
-        offsets[1:] = _np.cumsum(counts)
-        nxt = {}
-        for sid, desc in child_descs.items():
-            cnt = int(counts[sid])
-            if cnt == 0:
-                continue
-            desc.start = int(offsets[sid])
-            desc.n = cnt
-            nxt[sid] = desc
+        with trace.span("frontier.repair", stats, "repair_seconds"):
+            offsets = _np.zeros(len(counts) + 1, dtype=_np.int64)
+            offsets[1:] = _np.cumsum(counts)
+            nxt = {}
+            for sid, desc in child_descs.items():
+                cnt = int(counts[sid])
+                if cnt == 0:
+                    continue
+                desc.start = int(offsets[sid])
+                desc.n = cnt
+                nxt[sid] = desc
 
-        # ---- boundary repair on affected leading children (batched:
-        # one gather + scatter per level) --------------------------------
-        dev.repair_children(
-            [
-                (nxt[lead_sid].start, nxt[lead_sid].n, begins)
-                for lead_sid, begins in repair_jobs
-                if lead_sid in nxt and begins and int(rcount[lead_sid]) > 0
-            ]
-        )
-        devfrontier.clock(stats, "repair_seconds", t0)
+            # ---- boundary repair on affected leading children (batched:
+            # one gather + scatter per level) ----------------------------
+            dev.repair_children(
+                [
+                    (nxt[lead_sid].start, nxt[lead_sid].n, begins)
+                    for lead_sid, begins in repair_jobs
+                    if lead_sid in nxt and begins and int(rcount[lead_sid]) > 0
+                ]
+            )
 
         segs = nxt
 
@@ -1314,9 +1322,11 @@ def align_genomes(
     parallel-edge graph (``MultiPanGraph``); ``cfgkw`` are
     ``PickerConfig`` fields."""
     dev = _run_device(device, mesh)
-    ts, t, G, root_nodes = _read_inputs(inputfiles, multi, contigs)
-    idx = ESAIndex.construct(ts, backend=backend, safile=safile,
-                             lcpfile=lcpfile, cache=cache, device=dev)
+    with trace.span("rem.read"):
+        ts, t, G, root_nodes = _read_inputs(inputfiles, multi, contigs)
+    with trace.span("rem.esa"):
+        idx = ESAIndex.construct(ts, backend=backend, safile=safile,
+                                 lcpfile=lcpfile, cache=cache, device=dev)
     idx.nodes = root_nodes
     cfg = PickerConfig(**cfgkw)
     if checkpoint:
@@ -1598,25 +1608,27 @@ def _rem_device_multi_loop(
         raise RuntimeError("the native multiMUM enumeration "
                            "(reveal_tpu_torch/native) failed to load")
     nroot = len(arrs[0])
-    res = devloop_multi.rem_device_multi(
-        main.T,
-        root.SA,
-        root.LCP,
-        path_ivs,
-        path_samples,
-        cfg.minlength,
-        cfg.minn,
-        cfg.maxmums,
-        int(cfg.wscore),
-        int(cfg.wpen),
-        root_mums=max(64, int(nroot)),
-        device=device,
-    )
+    with trace.span("rem.multi_loop"):
+        res = devloop_multi.rem_device_multi(
+            main.T,
+            root.SA,
+            root.LCP,
+            path_ivs,
+            path_samples,
+            cfg.minlength,
+            cfg.minn,
+            cfg.maxmums,
+            int(cfg.wscore),
+            int(cfg.wpen),
+            root_mums=max(64, int(nroot)),
+            device=device,
+        )
     if res is None:
         return None
     anchors, T_out, levels = res
     main.T[:] = T_out
-    _rem_multi_replay(G, anchors, len(path_ivs))
+    with trace.span("rem.replay"):
+        _rem_multi_replay(G, anchors, len(path_ivs))
     log.debug(
         "device multi loop: %d anchors in %d levels, graph replayed",
         len(anchors),

@@ -135,6 +135,7 @@ def _device_option(p, what):
 def rem_cmd(args):
     from .align.rem import align_genomes
     from .align.graphops import prune_nodes
+    from .core import trace
     from .core.io_gfa import seq2node, write_gfa
 
     G, idx = align_genomes(
@@ -169,34 +170,36 @@ def rem_cmd(args):
             pref.append(bn[: bn.find(".")] if "." in bn else bn)
         args.output = "_".join(pref) + ".gfa.gz"
 
-    T = idx.main.T
-    if len(G.graph["paths"]) > 2:
-        prune_nodes(G, T=T)
-    seq2node(G, T)
+    with trace.span("rem.finish"):
+        T = idx.main.T
+        if len(G.graph["paths"]) > 2:
+            prune_nodes(G, T=T)
+        seq2node(G, T)
 
-    # identity stats (rem.align_cmd, rem.py:470-490)
-    totbases = (
-        idx.main.nT
-        - int((T == ord("$")).sum())
-        - int((T == ord("N")).sum())
-        - int((T == ord("n")).sum())
-    )
-    alignedbases = alignednodes = 0
-    nsamples = idx.main.nsamples
-    for n, d in G.nodes.items():
-        if isinstance(n, str) or d.get("aligned", 0) == 0:
-            continue
-        if nsamples > 2:
-            alignedbases += (n[1] - n[0]) * len(
-                [
-                    k
-                    for k in d["offsets"]
-                    if not G.graph["id2path"][k].startswith("*")
-                ]
-            )
-        else:
-            alignedbases += (n[1] - n[0]) * 2
-        alignednodes += 1
+        # identity stats (rem.align_cmd, rem.py:470-490)
+        totbases = (
+            idx.main.nT
+            - int((T == ord("$")).sum())
+            - int((T == ord("N")).sum())
+            - int((T == ord("n")).sum())
+        )
+        alignedbases = alignednodes = 0
+        nsamples = idx.main.nsamples
+        for n, d in G.nodes.items():
+            if isinstance(n, str) or d.get("aligned", 0) == 0:
+                continue
+            if nsamples > 2:
+                alignedbases += (n[1] - n[0]) * len(
+                    [
+                        k
+                        for k in d["offsets"]
+                        if not G.graph["id2path"][k].startswith("*")
+                    ]
+                )
+            else:
+                alignedbases += (n[1] - n[0]) * 2
+            alignednodes += 1
+
     log.info(
         "%s (%.2f%% identity, %d bases out of %d aligned, %d nodes aligned).",
         "-".join(os.path.basename(f) for f in args.inputfiles),
@@ -234,7 +237,8 @@ def rem_cmd(args):
         out += ".gml"
         nx.write_gml(H, out)
     else:
-        out = write_gfa(G, T, outputfile=args.output)
+        with trace.span("rem.write"):
+            out = write_gfa(G, T, outputfile=args.output)
     log.info("Graph written to: %s", out)
 
 
@@ -1572,6 +1576,7 @@ def _profiled(profiledir):
 def main(argv=None):
     import contextlib
 
+    from .core import trace
     from .index.suffix import build_device
 
     logging.addLevelName(TRACE, "TRACE")
@@ -1588,6 +1593,9 @@ def main(argv=None):
     profiledir = getattr(args, "profiledir", None)
     trace_cm = (_profiled(profiledir) if profiledir
                 else contextlib.nullcontext())
+    # a profiled command carries its stage spans
+    was_on = trace.enable(True) if profiledir else trace.ON
+    trace.begin()
     try:
         with trace_cm, build_device(getattr(args, "device", "cuda")):
             return args.func(args) or 0
@@ -1597,6 +1605,8 @@ def main(argv=None):
         except Exception:
             pass
         return 0
+    finally:
+        trace.enable(was_on)
 
 
 if __name__ == "__main__":

@@ -59,12 +59,12 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.encoding import N_BYTE, SENTINEL
 from .devloop import (arange32, associative_scan, seg_min_scan, shift1,
                       shift_left, take)
@@ -76,12 +76,17 @@ I64 = torch.int64
 # the last run's counters (``_align_loop_frontier``): levels, anchor
 # steps, apply calls, candidates returned by the enumeration, repair jobs,
 # host syncs (the frontier's own copies between host and device and the
-# count reads of ``nonzero``), seconds per stage, and ``fallback``: why the
-# frontier ran in place of the multi-genome loop (None when it was the
-# route from the start); on a mesh also mesh_P, mesh_sh (slots a rank),
-# mesh_padded (dead slots added), mesh_replicated (multi enumerations run
-# whole on every rank) and the collectives this rank posted (p2p, sends,
-# recvs, all_gathers, all_reduces, widest)
+# count reads of ``nonzero``), the host seconds of each stage
+# (enumerate_seconds, pick_seconds, apply_seconds, repair_seconds: the
+# clocks of the spans frontier.enumerate, frontier.pick, frontier.apply
+# and frontier.repair; they include the waits at the stage's own reads
+# from the card and no others, and with tracing on ``trace.read`` times
+# those waits), and ``fallback``: why the frontier ran in place of the
+# multi-genome loop (None when it was the route from the start); on a
+# mesh also mesh_P, mesh_sh (slots a rank), mesh_padded (dead slots
+# added), mesh_replicated (multi enumerations run whole on every rank)
+# and the collectives this rank posted (p2p, sends, recvs, all_gathers,
+# all_reduces, widest)
 LAST_STATS = {}
 
 
@@ -751,7 +756,7 @@ class DeviceFrontier:
 
     def _fetch(self, x):
         self.stats["host_syncs"] += 1
-        return x.cpu().numpy()
+        return trace.read(x.cpu).numpy()
 
     def _posted(self):
         """Copy the mesh's collective counts into ``stats``."""
@@ -944,9 +949,3 @@ def same_device(a, b) -> bool:
     return (a.index if a.index is not None else cur) == (
         b.index if b.index is not None else cur)
 
-
-def clock(stats, key, t0):
-    """Add the seconds since ``t0`` to ``stats[key]``; returns now."""
-    now = time.perf_counter()
-    stats[key] = stats.get(key, 0.0) + now - t0
-    return now

@@ -12,9 +12,12 @@ batched repair rounds (``repair_rounds_plain``).
 
 Every stage is a module-level function on int32 tensors; all outputs
 are bit-identical to the JAX kernel's.  The JAX ``while_loop``s and
-``lax.cond``s become Python control flow on ``.item()`` values (one
-host sync per loop test).  Scatters that the JAX code makes with
-``mode="drop"`` write through a buffer with one spill slot per
+``lax.cond``s become Python control flow on values read to the host (one
+host sync per loop test), each read counted by a ``HostReads``
+(``LAST_STATS["host_syncs"]``).  A level's stages are the spans
+``level.enumerate``, ``level.trim``, ``level.chain``, ``level.split``
+and ``level.repair`` (``core/trace.py``).  Scatters that the JAX code
+makes with ``mode="drop"`` write through a buffer with one spill slot per
 element, so every scatter stays unique-indexed, and gathers whose JAX
 index could leave the array are clamped as JAX clamps them.
 """
@@ -29,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.encoding import N_BYTE, SENTINEL
 from ..core.torchconfig import INDEX_DTYPE
 from . import repair
@@ -80,6 +84,8 @@ _RETRYABLE = {
 # repair_chain_max and repair_moved_slots are the repair counters of the
 # last dispatch: candidates applied, the longest run of one segment's
 # candidates in one pass, and the sum of q - x over the movers.
+# host_syncs counts the level loop's reads to the host over every
+# dispatch (the CPU's batched repair rounds not included).
 LAST_STATS = {}
 
 
@@ -392,10 +398,13 @@ def trim_dim(seg, l, a, b, coord):
 # ----------------------------------------------------------------------
 # chain + pick, dense (SMAX, CW+1) formulation (devloop.py:716-952)
 # ----------------------------------------------------------------------
-def chain_dense(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp, CW):
+def chain_dense(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp, CW,
+                reads=None):
     """Sparse chaining DP (schemes.py:20-104) and the ``largest`` pick
-    for every live segment at once.  Returns (picked, s_l, s_ma, s_mb,
-    abort, rounds) with rounds = column steps of the score pass."""
+    for every live segment at once, its host reads counted in ``reads``
+    (a ``HostReads``).  Returns (picked, s_l, s_ma, s_mb, abort, rounds)
+    with rounds = column steps of the score pass."""
+    reads = HostReads() if reads is None else reads
     K = cseg.shape[0]
     SMAX = seg_tab.shape[0]
     dev = cseg.device
@@ -465,7 +474,7 @@ def chain_dense(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp, CW):
 
     # scores: sequential pass over candidate columns up to the widest
     # live segment
-    maxcnt = int(torch.where(seg_live, candcnt, 0).max())
+    maxcnt = reads(torch.where(seg_live, candcnt, 0).max())
     score = torch.full((SMAX, CW1), NEG, dtype=I32, device=dev)
     j = 0
     while j < maxcnt:
@@ -535,7 +544,7 @@ def chain_dense(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp, CW):
     nxt = pad(torch.where(dlink >= 0, dlink, CW1), CW1)
     bl = pad(torch.where(candb, dL, -1), -1)
     bs = pad(cols[None, :].expand(SMAX, CW1), -1)
-    while bool((nxt[:, :CW1] != CW1).any()):
+    while reads((nxt[:, :CW1] != CW1).any()):
         bl2 = gsel(bl, nxt)
         bs2 = gsel(bs, nxt)
         take_far = bl2 > bl
@@ -574,7 +583,8 @@ def _comb_aff(x, y):
     )
 
 
-def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp):
+def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp,
+               reads=None):
     """Sparse chaining DP (schemes.py:20-104) and the ``largest`` pick of
     every live segment at once, over one flat list of M = K + SMAX rows
     (the candidates and one right pseudo-row a live segment, sorted by
@@ -593,7 +603,9 @@ def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp):
     rows out, and rows are sorted by segment), read once a level with
     one host read, and its masks and gap penalties are built once a level
     instead of once a round.  Results are the JAX kernel's bit for bit.
-    One host read a round tests the loop."""
+    One host read a round tests the loop; every read is counted in
+    ``reads`` (a ``HostReads``)."""
+    reads = HostReads() if reads is None else reads
     K = cseg.shape[0]
     SMAX = seg_tab.shape[0]
     M = K + SMAX
@@ -651,7 +663,7 @@ def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp):
     hi = torch.searchsorted(gseg, take(gseg, (starts + (CH - 1)).clamp(
         max=M - 1)), right=True)
     bounds = torch.cat([galive.sum(dtype=torch.int64)[None], lo, hi])
-    bounds = bounds.tolist()
+    bounds = reads(bounds)
     nlive = bounds[0]
     chunks = [
         (r0, min(r0 + CH, nlive), bounds[1 + c], min(bounds[1 + nch + c],
@@ -712,8 +724,8 @@ def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp):
         score = torch.where(commit, sc_new, score)
         done = done | commit
         rounds += 1
-        more, progress = torch.stack([(galive & ~done).any(),
-                                      commit.any()]).tolist()
+        more, progress = reads(torch.stack([(galive & ~done).any(),
+                                            commit.any()]))
         if not progress:
             rabort = ABORT_CHAIN_ROUNDS
     if rabort or more:
@@ -763,7 +775,7 @@ def chain_flat(cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp):
     nxt = torch.cat([torch.where(link >= 0, link, M), sentinel])
     bl = torch.cat([torch.where(cand, gl, -1), sentinel.new_full((1,), -1)])
     bs = torch.cat([iar_m, sentinel.new_full((1,), -1)])
-    while bool((nxt[:M] != M).any()):
+    while reads((nxt[:M] != M).any()):
         bl2 = take(bl, nxt)
         bs2 = take(bs, nxt)
         take_far = bl2 > bl
@@ -958,15 +970,21 @@ def split_level(T, SA, LCP, BWT, SEG, picked, s_ma, s_mb, s_l, seg_tab,
 # ----------------------------------------------------------------------
 class HostReads:
     """Counted device-to-host reads: one object counts every read of a
-    dispatch, its repair passes' included."""
+    dispatch, its repair passes' included.  With tracing on, each read's
+    seconds are a wait of the innermost open span (``trace.read``)."""
 
     def __init__(self):
         self.n = 0
 
     def __call__(self, t):
         """``t`` as Python values: one counted read."""
+        return self.sync(t.tolist)
+
+    def sync(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, a call that waits for the card (a read, or
+        an op that sizes its output on the host): one counted read."""
         self.n += 1
-        return t.tolist()
+        return trace.read(fn, *args, **kw)
 
 
 @dataclass
@@ -1159,8 +1177,8 @@ def repair_rounds(SA, LCP, moved, SEG, beg, cq, centry_next, rc, SMAX,
     if n == 0:
         return SA, LCP, moved, 0
     # unique_consecutive sizes its output on the host: a read
-    runs = torch.unique_consecutive(take(SEG, cq[:n]), return_counts=True)[1]
-    reads.n += 1
+    runs = reads.sync(torch.unique_consecutive, take(SEG, cq[:n]),
+                      return_counts=True)[1]
     stats[0] += n
     stats[1] = torch.maximum(stats[1], runs.max())
     pend = arange32(CCAP, SA.device) < n
@@ -1227,7 +1245,7 @@ class Caps:
 
 
 def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
-               ws, wp, caps: Caps):
+               ws, wp, caps: Caps, reads):
     """Run the whole recursion below the ``nseg0`` live segments of
     ``seg_tab``: the packed forest's, or the single root's.
 
@@ -1240,7 +1258,8 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
     (column steps or wavefront rounds), repair steps] (the JAX kernel's
     ``run``; repair steps are batched rounds on the CPU, launches on the
     card) and repair_stats the repair counters [applied, longest run,
-    moved slots]."""
+    moved slots].  The loop's reads to the host are counted in ``reads``
+    (a ``HostReads``)."""
     dev = SA.device
     T = Tu8.to(I32)
     # BWT column T[SA-1]; SA == 0 wraps to slot 0 (the a_ == 0 guard in
@@ -1255,55 +1274,62 @@ def forest_run(Tu8, SA, LCP, SEG, seg_tab, nseg0, nsep0, minl, maxmums,
     nseg = nseg0
     level = 0
     while nseg > 0 and level < _LMAX:
-        cseg, cl, caa, cbb, abort = enumerate_candidates(
-            SA, LCP, BWT, SEG, nsep0, minl, maxmums, caps.K, caps.SMAX,
-            abort,
-        )
-        cseg, cl, caa, cbb, na0 = trim_dim(cseg, cl, caa, cbb, 0)
-        cseg, cl, caa, cbb, na1 = trim_dim(cseg, cl, caa, cbb, 1)
-        steps[0] = steps[0] + na0 + na1
-        seg_live = sarange < nseg
-        if caps.CW is None:
-            picked, s_l, s_ma, s_mb, abort, rounds = chain_flat(
-                cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp
+        with trace.span("level.enumerate"):
+            cseg, cl, caa, cbb, abort = enumerate_candidates(
+                SA, LCP, BWT, SEG, nsep0, minl, maxmums, caps.K, caps.SMAX,
+                abort,
             )
-        else:
-            picked, s_l, s_ma, s_mb, abort, rounds = chain_dense(
-                cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp,
-                caps.CW
+        with trace.span("level.trim"):
+            cseg, cl, caa, cbb, na0 = trim_dim(cseg, cl, caa, cbb, 0)
+            cseg, cl, caa, cbb, na1 = trim_dim(cseg, cl, caa, cbb, 1)
+            steps[0] = steps[0] + na0 + na1
+        with trace.span("level.chain"):
+            seg_live = sarange < nseg
+            if caps.CW is None:
+                picked, s_l, s_ma, s_mb, abort, rounds = chain_flat(
+                    cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp,
+                    reads,
+                )
+            else:
+                picked, s_l, s_ma, s_mb, abort, rounds = chain_dense(
+                    cseg, cl, caa, cbb, seg_tab, seg_live, abort, ws, wp,
+                    caps.CW, reads,
+                )
+            steps[1] += rounds
+        with trace.span("level.split"):
+            anchors, lslot, npicked, abort = log_anchors(
+                anchors, acount, picked, s_ma, s_mb, s_l, seg_tab, abort
             )
-        steps[1] += rounds
-        anchors, lslot, npicked, abort = log_anchors(
-            anchors, acount, picked, s_ma, s_mb, s_l, seg_tab, abort
-        )
-        (new_tab, nseg_new, lead_live, trail_live, lead_id, trail_id,
-         abort) = children(picked, s_ma, s_mb, s_l, seg_tab, lslot, abort)
-        T, SA, LCP, BWT, SEG = split_level(
-            T, SA, LCP, BWT, SEG, picked, s_ma, s_mb, s_l, seg_tab,
-            lead_live, trail_live, lead_id, trail_id,
-        )
-        # per-slot views of the new children's (cls, ma, mb)
-        brows2 = take(new_tab[:, 5:8], SEG.clamp(0, caps.SMAX - 1))
-        is_lead = (SEG >= 0) & (brows2[:, 0] == 1)
-        for which in (1, 2):   # A-side begin (parent ma), then B-side
-            beg = torch.where(is_lead, brows2[:, which], -1)
-            SA, LCP, BWT, abort, iters = repair_pass(
-                SA, LCP, BWT, SEG, is_lead, beg, caps.CCAP, caps.SMAX,
-                abort, rstats,
+            (new_tab, nseg_new, lead_live, trail_live, lead_id, trail_id,
+             abort) = children(picked, s_ma, s_mb, s_l, seg_tab, lslot,
+                               abort)
+            T, SA, LCP, BWT, SEG = split_level(
+                T, SA, LCP, BWT, SEG, picked, s_ma, s_mb, s_l, seg_tab,
+                lead_live, trail_live, lead_id, trail_id,
             )
-            steps[2] += iters
+        with trace.span("level.repair"):
+            # per-slot views of the new children's (cls, ma, mb)
+            brows2 = take(new_tab[:, 5:8], SEG.clamp(0, caps.SMAX - 1))
+            is_lead = (SEG >= 0) & (brows2[:, 0] == 1)
+            for which in (1, 2):   # A-side begin (parent ma), then B-side
+                beg = torch.where(is_lead, brows2[:, which], -1)
+                SA, LCP, BWT, abort, iters = repair_pass(
+                    SA, LCP, BWT, SEG, is_lead, beg, caps.CCAP, caps.SMAX,
+                    abort, rstats,
+                )
+                steps[2] += iters
         acount = (acount + npicked).clamp(max=caps.ACAP)
         seg_tab = new_tab
         level += 1
-        nseg, abort_now = (int(v) for v in torch.stack([nseg_new, abort]))
+        nseg, abort_now = reads(torch.stack([nseg_new, abort]))
         if abort_now:
             break
-    abort = int(abort)
+    abort, trim_rows, acount = reads(torch.stack([abort, steps[0], acount]))
     if abort == 0 and level >= _LMAX:
         abort = ABORT_LEVEL_OVERFLOW
-    steps = [int(steps[0]), steps[1], steps[2]]
-    return (T.to(torch.uint8), anchors, int(acount), abort, level, steps,
-            rstats.tolist())
+    steps = [trim_rows, steps[1], steps[2]]
+    return (T.to(torch.uint8), anchors, acount, abort, level, steps,
+            reads(rstats))
 
 
 def _dispatch(T_p, SA_p, LCP_p, SEG_p, seg_rows, nsep0, minlength, maxmums,
@@ -1320,6 +1346,7 @@ def _dispatch(T_p, SA_p, LCP_p, SEG_p, seg_rows, nsep0, minlength, maxmums,
     dispatches = 0
     repair_total = 0
     launches0 = repair.LAUNCHES
+    reads = HostReads()
     for _attempt in range(5):
         if len(seg_rows) > caps.SMAX:
             caps.SMAX = _next_pow2(len(seg_rows))
@@ -1329,7 +1356,7 @@ def _dispatch(T_p, SA_p, LCP_p, SEG_p, seg_rows, nsep0, minlength, maxmums,
             dev_tensor(T_p), dev_tensor(SA_p), dev_tensor(LCP_p),
             dev_tensor(SEG_p), dev_tensor(seg_tab), len(seg_rows),
             int(nsep0), int(minlength), int(maxmums), int(wscore),
-            int(wpen), caps,
+            int(wpen), caps, reads,
         )
         dispatches += 1
         repair_total += steps[2]
@@ -1346,7 +1373,7 @@ def _dispatch(T_p, SA_p, LCP_p, SEG_p, seg_rows, nsep0, minlength, maxmums,
         repair_rounds_total=repair_total,
         repair_launches=repair.LAUNCHES - launches0,
         repair_applied=rstats[0], repair_chain_max=rstats[1],
-        repair_moved_slots=rstats[2],
+        repair_moved_slots=rstats[2], host_syncs=reads.n,
     )
     if abort:
         log.info("%s aborted (code %d)", what, abort)

@@ -35,7 +35,10 @@ computes over the live segments and the widest live segment's columns
 only, which gives the same values.  Python control flow on host reads
 replaces the JAX ``while_loop``s; each read is counted
 (``LAST_STATS["host_syncs"]``), and the level loop reads its state once a
-level.
+level.  A level's stages are the spans ``multi.enumerate`` (1),
+``multi.trim`` (2-3, with the read of the segments' candidate counts),
+``multi.chain`` (4), ``multi.split`` (5) and ``multi.repair`` (6)
+(``core/trace.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.encoding import N_BYTE, SENTINEL
 from . import window_resolve as wr
 from .devloop import (
@@ -826,51 +830,58 @@ def multi_run(Tu8, SA, LCP, SOA, SEG, seg_tab, live_key, sop, minl, minn,
     nseg = 1
     level = 0
     while nseg > 0 and level < level_cap:
-        table, abort = enumerate_multi(
-            SA, LCP, BWT, SOA, SEG, sop, minl, minn, maxmums, caps.K,
-            caps.SMAX, abort,
-        )
-        table, kept = select_subsets(table, live_key, DS)
-        trim_rows = trim_rows + kept
-        for j in range(D):
-            table, na = trim_dim_multi(table, j, D)
-            trim_rows = trim_rows + na
-        table, segkey = same_paths(table, caps.SMAX)
-        cseg = table[:, C_SEG]
-        segcnt = torch.zeros(caps.SMAX, dtype=I32, device=dev).index_add_(
-            0, cseg.clamp(0, caps.SMAX - 1), (cseg < BIG).to(I32))
-        maxcnt, abort_now = reads(torch.stack([segcnt.max(), abort]))
+        with trace.span("multi.enumerate"):
+            table, abort = enumerate_multi(
+                SA, LCP, BWT, SOA, SEG, sop, minl, minn, maxmums, caps.K,
+                caps.SMAX, abort,
+            )
+        with trace.span("multi.trim"):
+            table, kept = select_subsets(table, live_key, DS)
+            trim_rows = trim_rows + kept
+            for j in range(D):
+                table, na = trim_dim_multi(table, j, D)
+                trim_rows = trim_rows + na
+            table, segkey = same_paths(table, caps.SMAX)
+            cseg = table[:, C_SEG]
+            segcnt = torch.zeros(caps.SMAX, dtype=I32,
+                                 device=dev).index_add_(
+                0, cseg.clamp(0, caps.SMAX - 1), (cseg < BIG).to(I32))
+            maxcnt, abort_now = reads(torch.stack([segcnt.max(), abort]))
         if abort_now == ABORT_MAXMUMS:
             # final for this input at any capacity: stop here
             level += 1
             break
-        picked, s_l, s_ord, s_P, abort, rounds = chain_dense_multi(
-            table, seg_tab, nseg, segkey, maxcnt, abort, ws, wp, caps.CW, D,
-            reads,
-        )
-        chain_steps += rounds
-        anchors, lslot, npicked, abort = log_anchors_multi(
-            anchors, acount, picked, s_l, s_ord, s_P, seg_tab, abort,
-        )
-        (new_tab, new_live_key, nseg_new, lead_id, trail_id, par_id,
-         abort) = children_multi(picked, s_l, s_P, seg_tab, lslot, sop, abort)
-        T, SA, LCP, BWT, SOA, SEG = split_multi(
-            T, SA, LCP, BWT, SOA, SEG, picked, s_l, s_P, seg_tab, lead_id,
-            trail_id, par_id,
-        )
-        # one pass a path: begins of leading children (their parent's
-        # anchor in that path)
-        brows = take(torch.cat([new_tab[:, 1:2], new_tab[:, 2 + 2 * D:]], 1),
-                     SEG.clamp(0, caps.SMAX - 1))
-        is_lead = (SEG >= 0) & (brows[:, 0] == 1)
-        for d in range(D):
-            beg = torch.where(is_lead, brows[:, 1 + d], -1)
-            SA, LCP, BWT, SOA, abort, r = repair_pass_multi(
-                SA, LCP, BWT, SOA, SEG, beg, caps.CCAP, caps.SMAX, abort,
-                rstats, reads,
+        with trace.span("multi.chain"):
+            picked, s_l, s_ord, s_P, abort, rounds = chain_dense_multi(
+                table, seg_tab, nseg, segkey, maxcnt, abort, ws, wp, caps.CW,
+                D, reads,
             )
-            repair_steps += r
-            passes += int(r > 0)
+            chain_steps += rounds
+        with trace.span("multi.split"):
+            anchors, lslot, npicked, abort = log_anchors_multi(
+                anchors, acount, picked, s_l, s_ord, s_P, seg_tab, abort,
+            )
+            (new_tab, new_live_key, nseg_new, lead_id, trail_id, par_id,
+             abort) = children_multi(picked, s_l, s_P, seg_tab, lslot, sop,
+                                     abort)
+            T, SA, LCP, BWT, SOA, SEG = split_multi(
+                T, SA, LCP, BWT, SOA, SEG, picked, s_l, s_P, seg_tab,
+                lead_id, trail_id, par_id,
+            )
+        with trace.span("multi.repair"):
+            # one pass a path: begins of leading children (their parent's
+            # anchor in that path)
+            brows = take(torch.cat([new_tab[:, 1:2], new_tab[:, 2 + 2 * D:]],
+                                   1), SEG.clamp(0, caps.SMAX - 1))
+            is_lead = (SEG >= 0) & (brows[:, 0] == 1)
+            for d in range(D):
+                beg = torch.where(is_lead, brows[:, 1 + d], -1)
+                SA, LCP, BWT, SOA, abort, r = repair_pass_multi(
+                    SA, LCP, BWT, SOA, SEG, beg, caps.CCAP, caps.SMAX, abort,
+                    rstats, reads,
+                )
+                repair_steps += r
+                passes += int(r > 0)
         acount = (acount + npicked).clamp(max=caps.ACAP)
         seg_tab = new_tab
         live_key = new_live_key
