@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 
 from .encoding import to_str
+from .gzwrite import GzipTextWriter
 from ..graph.pangraph import PanGraph
 
 log = logging.getLogger(__name__)
@@ -23,6 +24,8 @@ log = logging.getLogger(__name__)
 
 def _open(fn: str, mode: str = "rt"):
     if fn.endswith(".gz"):
+        if mode == "wt":  # level 9, deflated on the host's cores
+            return GzipTextWriter(fn)
         return gzip.open(fn, mode)
     return open(fn, mode)
 

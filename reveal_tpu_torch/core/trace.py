@@ -29,7 +29,8 @@ import time
 
 # every label a span of the port carries: the rem job's stages, a level
 # of the pairwise forest or single-root loop, a level of the multi-genome
-# loop, a level of the per-level frontier
+# loop, a level of the per-level frontier, the wait of a .gz write for its
+# deflate (core/gzwrite.py)
 LABELS = (
     "rem.read", "rem.esa", "rem.host_prefix", "rem.forest",
     "rem.single_root", "rem.multi_loop", "rem.frontier", "rem.replay",
@@ -40,6 +41,7 @@ LABELS = (
     "multi.repair",
     "frontier.enumerate", "frontier.pick", "frontier.apply",
     "frontier.repair",
+    "gfa.deflate",
 )
 
 # the last command's record while tracing is on (empty while it is off):
