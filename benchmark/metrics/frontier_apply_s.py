@@ -1,0 +1,19 @@
+"""frontier_apply_s (s a job; layer align.rem frontier, index.devfrontier):
+a level's split and lowercase on the card and the boundary repair of its
+leading children, the program's spans ``frontier.apply`` and
+``frontier.repair`` summed over the frontier's levels, over the window's
+traced jobs whose route is the frontier."""
+
+from benchmark.readers import ROUTE_STATS, mean
+from benchmark.stagespans import PROBES, __getattr__  # noqa: F401
+from benchmark.stagespans import STATS as TRACE_STATS
+from benchmark.stagespans import stat
+
+STATS = ROUTE_STATS + TRACE_STATS
+
+
+def read(run):
+    return mean([(stat(j, "frontier.apply") or 0)
+                 + (stat(j, "frontier.repair") or 0) for j in run.jobs
+                 if j["route"].startswith("frontier")
+                 and stat(j, "job") is not None])

@@ -1640,8 +1640,7 @@ FRONTIER_CARD_CPU = (4, 50_000)
 def node_state(G):
     """The aligned node set of a graph (tests/test_frontier.py): every
     interval node with its offsets and aligned flag.  The frontier and
-    the serial engine build the same one; only the GFA's node numbering
-    may differ."""
+    the serial engine build the same one."""
     return sorted(
         (n, tuple(sorted(G.nodes[n]["offsets"].items())),
          G.nodes[n].get("aligned", 0))

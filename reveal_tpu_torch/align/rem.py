@@ -44,6 +44,8 @@ unless the caller set up a process group).
 
 from __future__ import annotations
 
+import copy
+import gc
 import logging
 import os
 import time
@@ -1028,9 +1030,14 @@ def _align_loop_frontier(
     the affected leading children.
 
     Per-segment decisions are independent (each segment owns disjoint
-    text and graph regions), so the result is semantically identical to
-    the LIFO loop; only GFA node numbering may differ.  ``declined``: why
-    the device loops did not take this input, recorded as
+    text and graph regions), so the picks are the LIFO loop's.  The graph
+    surgery runs level by level, which leaves the graph's dicts in
+    another insertion order than the serial engine's (and GFA node
+    numbering follows it); once the loop ends, ``_replay_in_pop_order``
+    rebuilds the graph from its state before the loop by the same
+    surgery in the serial LIFO pop order (span ``frontier.order``), so
+    the GFA is the serial engine's byte for byte.  ``declined``: why the
+    device loops did not take this input, recorded as
     ``devfrontier.LAST_STATS["fallback"]``.
 
     With ``mesh`` (``parallel/mesh.Mesh``; ``device`` is its device) the
@@ -1047,8 +1054,16 @@ def _align_loop_frontier(
     stats.clear()
     stats.update(fallback=declined, levels=0, steps=0, applies=0,
                  enumerate_seconds=0.0, pick_seconds=0.0,
-                 apply_seconds=0.0, repair_seconds=0.0)
+                 apply_seconds=0.0, repair_seconds=0.0, order_seconds=0.0)
     t_start = time.perf_counter()
+    with trace.span("frontier.order", stats, "order_seconds"):
+        before = copy.deepcopy((G.nodes, G.succ, G.pred))
+    # each anchor step's surgery (match length, the (node, position) of
+    # every break in graphalign's order), parent step and class (1
+    # leading, 2 trailing, 4 parallel); each live segment's (parent step,
+    # class)
+    surgery, parents, classes = [], [], []
+    origin = {0: (-1, 0)}
     main = root.main
     picker = MumPicker(G, t, cfg)
     dev = DeviceFrontier(
@@ -1131,6 +1146,7 @@ def _align_loop_frontier(
             matches_all = []
             repair_jobs = []  # (lead_sid, sorted own match begins)
             child_descs = {}
+            child_origin = {}
             next_sid = 0
 
             for s in sids:
@@ -1149,6 +1165,9 @@ def _align_loop_frontier(
                     continue
                 splitmum, skipleft, skipright = pick
                 ml, mn, spd = splitmum
+                surgery.append((ml, [(t.lookup(p), p) for _g, p in spd]))
+                parents.append(origin[s][0])
+                classes.append(origin[s][1])
                 (
                     leading,
                     trailing,
@@ -1174,6 +1193,7 @@ def _align_loop_frontier(
                     sid = next_sid
                     next_sid += 1
                     seg_map[sid_index[s], cls] = sid
+                    child_origin[sid] = (steps - 1, cls)
                     seen = {int(main.SO[bgn]) for bgn, _e in desc_nodes}
                     child_descs[sid] = SegDesc(
                         sid=sid,
@@ -1240,13 +1260,62 @@ def _align_loop_frontier(
             )
 
         segs = nxt
+        origin = child_origin
 
+    with trace.span("frontier.order", stats, "order_seconds"):
+        _replay_in_pop_order(G, before, surgery, parents, classes)
     stats.update(levels=levels, steps=steps,
                  seconds=time.perf_counter() - t_start)
     log.debug(
         "device frontier: %d anchor steps in %d levels", steps, levels
     )
     return steps
+
+
+class _NoIntervals:
+    """The interval index of a replay: ``breaknode`` keeps it, nothing
+    reads it (the replay is given each break's node)."""
+
+    def add(self, iv):
+        pass
+
+    remove = add
+
+
+def _replay_in_pop_order(G: PanGraph, before, surgery, parents, classes):
+    """Put the per-level frontier's graph into the serial engine's
+    insertion order: from ``before`` (G's nodes, successors and
+    predecessors before the recursion) replay every anchor step's
+    surgery (``graphalign``'s breaks and merge; ``surgery[k]`` = (match
+    length, [(node, position), ...])) in the serial LIFO pop order of the
+    steps' tree (``forest_pop_order_multi`` over ``parents`` and
+    ``classes``), and make the result G's.  The same operations on the
+    same nodes as the frontier's, in the order the serial engine makes
+    them, so G's dicts (and the GFA's topological node numbering) are
+    the serial engine's.  The replay makes no reference cycles, so the
+    cyclic garbage collector is off while it runs: its full passes over
+    the process's heap took about 40% of the replay at 6 x 115 kbp."""
+    if not surgery:
+        return
+    order = devloop_multi.forest_pop_order_multi(
+        np.asarray(parents), np.asarray(classes))[-1].tolist()
+    if order == list(range(len(surgery))):
+        return  # the frontier made the steps in the serial order
+    H = type(G)()
+    H.graph = G.graph
+    H.nodes, H.succ, H.pred = before
+    noidx = _NoIntervals()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for k in order:
+            ml, breaks = surgery[k]
+            mergenodes(H, [breaknode(H, noidx, old, pos, ml)[0]
+                           for old, pos in breaks])
+    finally:
+        if collecting:
+            gc.enable()
+    G.nodes, G.succ, G.pred = H.nodes, H.succ, H.pred
 
 
 def _read_inputs(inputfiles: List[str], multi: bool = False,
@@ -1369,7 +1438,7 @@ def align_genomes_host(inputfiles: List[str], multi: bool = False,
 def node_state(G):
     """The aligned node set of a graph: every interval node with its
     offsets and aligned flag, sorted.  Every route of ``rem`` builds the
-    same one for an input; only the GFA's node numbering may differ."""
+    same one for an input."""
     return sorted(
         (n, tuple(sorted(G.nodes[n]["offsets"].items())),
          G.nodes[n].get("aligned", 0))
@@ -1603,7 +1672,9 @@ def _rem_device_multi_loop(
 
     main = root.main
     # the root's multiMUM count sizes the candidate and chain capacities
-    arrs = root.getmultimums_arrays(minlength=cfg.minlength, minn=cfg.minn)
+    with trace.span("rem.multi_root"):
+        arrs = root.getmultimums_arrays(minlength=cfg.minlength,
+                                        minn=cfg.minn)
     if arrs is None:
         raise RuntimeError("the native multiMUM enumeration "
                            "(reveal_tpu_torch/native) failed to load")

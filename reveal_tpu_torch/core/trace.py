@@ -27,20 +27,22 @@ from __future__ import annotations
 
 import time
 
-# every label a span of the port carries: the rem job's stages, a level
-# of the pairwise forest or single-root loop, a level of the multi-genome
-# loop, a level of the per-level frontier, the wait of a .gz write for its
-# deflate (core/gzwrite.py)
+# every label a span of the port carries: the rem job's stages (the
+# multi loop's root count, rem.multi_root, among them), a level of the
+# pairwise forest or single-root loop, a level of the multi-genome loop,
+# a level of the per-level frontier and its replay in the serial order
+# (frontier.order), the wait of a .gz write for its deflate
+# (core/gzwrite.py)
 LABELS = (
     "rem.read", "rem.esa", "rem.host_prefix", "rem.forest",
-    "rem.single_root", "rem.multi_loop", "rem.frontier", "rem.replay",
-    "rem.finish", "rem.write",
+    "rem.single_root", "rem.multi_root", "rem.multi_loop", "rem.frontier",
+    "rem.replay", "rem.finish", "rem.write",
     "level.enumerate", "level.trim", "level.chain", "level.split",
     "level.repair",
     "multi.enumerate", "multi.trim", "multi.chain", "multi.split",
     "multi.repair",
     "frontier.enumerate", "frontier.pick", "frontier.apply",
-    "frontier.repair",
+    "frontier.repair", "frontier.order",
     "gfa.deflate",
 )
 

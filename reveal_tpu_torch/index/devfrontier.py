@@ -77,11 +77,13 @@ I64 = torch.int64
 # steps, apply calls, candidates returned by the enumeration, repair jobs,
 # host syncs (the frontier's own copies between host and device and the
 # count reads of ``nonzero``), the host seconds of each stage
-# (enumerate_seconds, pick_seconds, apply_seconds, repair_seconds: the
-# clocks of the spans frontier.enumerate, frontier.pick, frontier.apply
-# and frontier.repair; they include the waits at the stage's own reads
-# from the card and no others, and with tracing on ``trace.read`` times
-# those waits), and ``fallback``: why the frontier ran in place of the
+# (enumerate_seconds, pick_seconds, apply_seconds, repair_seconds,
+# order_seconds: the clocks of the spans frontier.enumerate,
+# frontier.pick, frontier.apply, frontier.repair and frontier.order, the
+# last the graph's snapshot before the loop and its replay in the serial
+# order after it; they include the waits at the stage's own reads from
+# the card and no others, and with tracing on ``trace.read`` times those
+# waits), ``seconds`` (the whole frontier), and ``fallback``: why the frontier ran in place of the
 # multi-genome loop (None when it was the route from the start); on a
 # mesh also mesh_P, mesh_sh (slots a rank), mesh_padded (dead slots
 # added), mesh_replicated (multi enumerations run whole on every rank)

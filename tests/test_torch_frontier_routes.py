@@ -1,16 +1,15 @@
 """The inputs that take the torch port's per-level frontier, end to end.
 
-Each case runs four ways on the same numpy-seeded input: the JAX
-package's serial host engine, the JAX package's ``DeviceFrontier``
-(``align_genomes(..., frontier=True)`` with ``REVEAL_TPU_DISABLE_DEVLOOP``
-set, which skips its whole-recursion loops: without it a multi-genome
-input dies on the ``segstart`` NameError of ``_build_kernel_multi`` before
-it reaches the frontier), the port's ``align_genomes(device="cpu")`` by its
-own routing, and the port's frontier forced (``_align_loop_frontier``).
-The port's frontier writes the JAX frontier's GFA byte for byte and its
-text; the port's route builds the host engine's node state (intervals,
-offsets, aligned flags) and text, and where its route is the frontier,
-the JAX frontier's GFA.
+Each case runs three ways on the same numpy-seeded input: the JAX
+package's serial host engine (``align_genomes(..., frontier=False)``, the
+serial LIFO recursion whose GFA is the port's target), the port's
+``align_genomes(device="cpu")`` by its own routing, and the port's
+frontier forced (``_align_loop_frontier``).  Both port runs build the host
+engine's node state (intervals, offsets, aligned flags) and text and
+write its GFA byte for byte: the frontier replays its graph surgery in
+the serial pop order, so its node numbering is the serial engine's.  (The
+JAX package's ``DeviceFrontier`` numbers the nodes in its own level
+order, so it is no oracle for the bytes.)
 """
 
 import importlib.util
@@ -45,13 +44,6 @@ def two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
-
-
-@pytest.fixture
-def jax_frontier(monkeypatch):
-    """The JAX package's ``frontier=True`` goes straight to its
-    ``DeviceFrontier``."""
-    monkeypatch.setenv("REVEAL_TPU_DISABLE_DEVLOOP", "1")
 
 
 def node_state(G):
@@ -90,16 +82,13 @@ def _forced(files, multi=False, **cfg):
 
 
 def hold(files, tmp_path, multi=False, **cfg):
-    """The four runs of the module docstring; returns the frontier's
+    """The three runs of the module docstring; returns the frontier's
     ``LAST_STATS`` after the port's own route (empty when the route was
     not the frontier)."""
     G, idx = jax_rem.align_genomes(files, backend="auto", multi=multi,
                                    **cfg)
     host_state, host_T = node_state(G), idx.main.T.copy()
-    G, idx = jax_rem.align_genomes(files, backend="auto", multi=multi,
-                                   frontier=True, **cfg)
-    jax_T = idx.main.T.copy()
-    want = _jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
+    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
 
     devfrontier.LAST_STATS.clear()
     G, idx = port_rem.align_genomes(files, device="cpu", multi=multi, **cfg)
@@ -109,18 +98,19 @@ def hold(files, tmp_path, multi=False, **cfg):
     port = _port_gfa(G, idx, str(tmp_path / "port.gfa"))
     if stats:
         assert stats["levels"] > 1
-        assert port == want
+        assert stats["order_seconds"] > 0
+    assert port == want
 
     G, idx = _forced(files, multi, **cfg)
-    np.testing.assert_array_equal(idx.main.T, jax_T)
+    np.testing.assert_array_equal(idx.main.T, host_T)
     assert _port_gfa(G, idx, str(tmp_path / "forced.gfa")) == want
     return stats
 
 
-def test_frontier_pair(tmp_path, jax_frontier):
+def test_frontier_pair(tmp_path):
     """tests/test_frontier.py's pair: one sequence a sample, so the
     port's route is the host prefix and forest; the forced frontier
-    still writes the JAX frontier's GFA."""
+    writes the serial engine's GFA too."""
     rng = np.random.default_rng(2)
     base = "".join(rng.choice(list("ACGT"), size=4000))
     mut = list(base)
@@ -136,23 +126,6 @@ def test_frontier_pair(tmp_path, jax_frontier):
     assert not hold(fa, tmp_path)
 
 
-@pytest.mark.parametrize("make,cfg,route", [
-    (multicontig_pair, {}, True),
-    (repetitive_pair, {"minlength": 15}, False),
-    (four_genomes, {}, False),
-    (four_genomes, {"maxmums": 30}, True),
-], ids=["multicontig-pair", "repetitive-pair-m15", "four-genomes",
-        "four-genomes-maxmums30"])
-def test_frontier_inputs(make, cfg, route, tmp_path, jax_frontier):
-    """tests/test_frontier.py's inputs; at ``maxmums=30`` the multi loop
-    declines (ABORT_MAXMUMS) and the frontier finishes the input."""
-    stats = hold(make(tmp_path), tmp_path, **cfg)
-    assert bool(stats) == route
-    if cfg.get("maxmums"):
-        assert "ABORT_MAXMUMS" in devloop_multi.LAST_STATS["fallback"]
-        assert stats["fallback"] == devloop_multi.LAST_STATS["fallback"]
-
-
 def _population(tmp_path, n, length, seed, split=None):
     fastas = []
     for i, (name, seq, _ids) in enumerate(
@@ -165,7 +138,34 @@ def _population(tmp_path, n, length, seed, split=None):
     return fastas
 
 
-def test_nine_paths(tmp_path, jax_frontier):
+def six_genomes(tmp_path):
+    """Six genomes of 6 kbp: at ``maxmums=30`` the root holds more
+    candidates than that, as the six-genome panel's root does past about
+    100 kbp at the default 10,000, and the frontier's level order differs
+    from the serial pop order."""
+    return _population(tmp_path, 6, 6_000, 4)
+
+
+@pytest.mark.parametrize("make,cfg,route", [
+    (multicontig_pair, {}, True),
+    (repetitive_pair, {"minlength": 15}, False),
+    (four_genomes, {}, False),
+    (four_genomes, {"maxmums": 30}, True),
+    (six_genomes, {"maxmums": 30}, True),
+], ids=["multicontig-pair", "repetitive-pair-m15", "four-genomes",
+        "four-genomes-maxmums30", "six-genomes-maxmums30"])
+def test_frontier_inputs(make, cfg, route, tmp_path):
+    """tests/test_frontier.py's inputs and six genomes; at ``maxmums=30``
+    the multi loop declines at the root (ABORT_MAXMUMS) and the frontier
+    finishes the input with the serial engine's GFA."""
+    stats = hold(make(tmp_path), tmp_path, **cfg)
+    assert bool(stats) == route
+    if cfg.get("maxmums"):
+        assert "ABORT_MAXMUMS" in devloop_multi.LAST_STATS["fallback"]
+        assert stats["fallback"] == devloop_multi.LAST_STATS["fallback"]
+
+
+def test_nine_paths(tmp_path):
     """Eight genomes, one of two contigs: nine paths, past the multi
     loop's eight, take the frontier."""
     fastas = _population(tmp_path, 8, 3000, 10, split=3)
@@ -175,18 +175,17 @@ def test_nine_paths(tmp_path, jax_frontier):
 @pytest.mark.parametrize("cfg", [
     {"seedsize": 40}, {"gcmodel": "star-avg"}, {"maxsize": 200},
 ], ids=["seedsize40", "gcmodel-star-avg", "maxsize200"])
-def test_picking_options_take_the_frontier(cfg, tmp_path, jax_frontier):
+def test_picking_options_take_the_frontier(cfg, tmp_path):
     """Seeding, a gap-cost model and a size gate: not forest inputs."""
     stats = hold(_population(tmp_path, 2, 20_000, 5), tmp_path, **cfg)
     assert stats and stats["fallback"] is None
 
 
-def test_notrim_is_honoured(tmp_path, jax_frontier):
+def test_notrim_is_honoured(tmp_path):
     """``--notrim`` on a plain pair takes the frontier and keeps the
-    untrimmed result: the JAX host engine's node state with
-    ``trim=False`` and the JAX ``DeviceFrontier``'s GFA.  (The JAX
-    ``frontier=True`` route without the variable gives the trimmed result
-    there: its single-root loop always trims.)"""
+    untrimmed result: the JAX host engine's node state and GFA with
+    ``trim=False``.  (The JAX ``frontier=True`` route gives the trimmed
+    result there: its single-root loop always trims.)"""
     fastas = _population(tmp_path, 2, 20_000, 5)
     assert hold(fastas, tmp_path, trim=False)
     G, _idx = jax_rem.align_genomes(fastas, backend="auto")
@@ -196,7 +195,7 @@ def test_notrim_is_honoured(tmp_path, jax_frontier):
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["digraph", "multi"])
-def test_gfa_and_fasta_inputs(tmp_path, jax_frontier, multi):
+def test_gfa_and_fasta_inputs(tmp_path, multi):
     """A three-path bubble chain as ``.gfa`` beside a fasta of one of its
     paths, mutated: graph inputs take the frontier, in either graph mode
     (``--multi``: the parallel-edge graph)."""

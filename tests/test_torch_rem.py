@@ -204,14 +204,14 @@ def test_three_fastas_match_the_host_engine(tmp_path):
         assert fh.read() == host
 
 
-def test_cli_flags_match_the_reveal_tpu_cli(tmp_path, monkeypatch):
+def test_cli_flags_match_the_reveal_tpu_cli(tmp_path):
     """Non-default -m, -n, --maxmums, --wscore, --wpen and --pcutoff
     reach the pairwise route: the port's GFA equals ``python -m
     reveal_tpu.cli rem --frontier``'s with the same flags, and differs
     from the default one.  --seedsize, --gcmodel, --maxsize, --notrim and
     --multi reach the per-level frontier: the port's GFA equals the
-    reference CLI's on its ``DeviceFrontier`` (``REVEAL_TPU_DISABLE_DEVLOOP``
-    skips its single-root loop, which always trims)."""
+    reference CLI's serial host engine's (``rem`` without ``--frontier``)
+    with the same flags."""
     import reveal_tpu.cli as jax_cli
     from reveal_tpu_torch import cli as port_cli
     from reveal_tpu_torch.index import devfrontier
@@ -230,14 +230,12 @@ def test_cli_flags_match_the_reveal_tpu_cli(tmp_path, monkeypatch):
             ("default", ["--device", "cpu"], port_cli.main),
             ("port_frontier", ["--device", "cpu", *frontier_flags],
              port_cli.main),
-            ("ref_frontier", ["--frontier", *frontier_flags],
-             jax_cli.main)):
+            ("ref_frontier", frontier_flags, jax_cli.main)):
         if name == "port_frontier":
             assert devloop.LAST_STATS["abort"] == 0
             devfrontier.LAST_STATS.clear()
         if name == "ref_frontier":
             assert devfrontier.LAST_STATS["levels"] > 1
-            monkeypatch.setenv("REVEAL_TPU_DISABLE_DEVLOOP", "1")
         fn = str(tmp_path / (name + ".gfa"))
         main(["rem", *fastas, *argv, "-o", fn])
         with open(fn, "rb") as fh:

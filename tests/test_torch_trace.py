@@ -25,12 +25,14 @@ ROUTES = {
     "pair": REM + ("rem.host_prefix", "rem.forest", "level.enumerate",
                    "level.trim", "level.chain", "level.split",
                    "level.repair"),
-    "six": REM + ("rem.multi_loop", "multi.enumerate", "multi.trim",
-                  "multi.chain", "multi.split", "multi.repair"),
+    "six": REM + ("rem.multi_root", "rem.multi_loop", "multi.enumerate",
+                  "multi.trim", "multi.chain", "multi.split", "multi.repair"),
 }
 SIZES = {"pair": (2, 30_000), "six": (6, 6_000)}
 MULTI = ("multi.enumerate", "multi.trim", "multi.chain", "multi.split",
          "multi.repair")
+FRONTIER = ("frontier.enumerate", "frontier.pick", "frontier.apply",
+            "frontier.repair", "frontier.order")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -191,6 +193,29 @@ def test_frontier_stage_clocks_are_its_spans(tmp_path):
         assert rec.get("frontier." + k, 0.0) == st[k + "_seconds"], k
     assert rec["frontier.enumerate.reads"] >= 1
     assert rec["rem.frontier"] >= sum(st[k + "_seconds"] for k in keys)
+
+
+def test_declined_panel_spans_cover_the_frontier(tmp_path):
+    """Six genomes whose root holds more than ``--maxmums`` candidates:
+    the multi loop's root count (``rem.multi_root``) and its attempt are
+    recorded before it declines, and the frontier's five stage spans, its
+    snapshot and replay in the serial order (``frontier.order``) among
+    them, cover 97-100.5% of ``rem.frontier``, each stage's clock also
+    its ``devfrontier.LAST_STATS`` seconds."""
+    fastas = _fastas(str(tmp_path), 6, 6_000, seed=4)
+    trace.enable(True)
+    _rem(fastas, str(tmp_path / "on.gfa"), "--maxmums", "30")
+    rec, st = trace.LAST_STATS, devfrontier.LAST_STATS
+    assert "ABORT_MAXMUMS" in st["fallback"]
+    assert rec["rem.multi_root.calls"] == rec["rem.multi_loop.calls"] == 1
+    assert rec["frontier.order.calls"] == 2
+    assert st["order_seconds"] == rec["frontier.order"] > 0
+    for label in FRONTIER:
+        assert label in trace.LABELS
+        assert rec[label] == st[label.split(".")[1] + "_seconds"], label
+    stages = sum(rec[k] for k in FRONTIER)
+    assert 0.97 * rec["rem.frontier"] <= stages
+    assert stages <= 1.005 * rec["rem.frontier"]
 
 
 def test_spans_nest_and_bill_reads_to_the_innermost():
