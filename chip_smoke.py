@@ -1,15 +1,16 @@
 """Smoke run of the torch port on one CUDA card.
 
     python3 chip_smoke.py [--seed 1] [--length 2000000]
-                          [--only kernels|profile|multi|frontier|single|align|esa|dist|mesh]
+                          [--only kernels|profile|multi|chain|frontier|single|align|esa|dist|mesh]
                           [--tree DIR]
 
 ``--only kernels`` stops after phase 4 (about three minutes): the build
 and the kernels against their plain versions, for work on a kernel.
 ``--only profile`` runs phases 1-2 and 5b only.  ``--only multi`` runs
-phases 1-2, the window-resolve checks of phase 3 and phase 5c;
-``--only frontier`` phases 1-2 and 5d; ``--only single`` phases 1-2 and
-5e; ``--only align`` phases 1-2 and 7; ``--only esa`` phases 1-2 and 8;
+phases 1-2, the window-resolve checks of phase 3 and phases 5c and 5f;
+``--only chain`` phases 1-2 and 5f; ``--only frontier`` phases 1-2 and
+5d; ``--only single`` phases 1-2 and 5e; ``--only align`` phases 1-2 and
+7; ``--only esa`` phases 1-2 and 8;
 ``--only dist`` phases 1-2, 5d (b)-(d) (phase 9 (f) and (h) hold the mesh
 frontier to their GFAs) and 9; ``--only mesh`` phases 1-2, 5d (b)-(d),
 9 (d) and 9 (f)-(h).
@@ -66,6 +67,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    sync to the line of the port that made it, and with every repair
    round's window-resolve held exactly against its plain version
    (plain, kernel, kernel, plain; CUDA events);
+5f. the multi chain's score pass (``index/chain_score.py``,
+   ``csrc/chain_score_multi.cu``): two ``simulate_population(6, 80_000,
+   seed)`` jobs (the panel_1a1f cell's shape) through ``cli rem --device
+   cuda`` with every level's planes recorded at the wrapper, one launch a
+   level with candidate columns checked, then each level's planes through
+   the kernel and the plain loop on the card, bit for bit, with both
+   times (CUDA events), the bound by operations and the latency floor;
+   three synthetic levels past the panel's widths, the last past the
+   shared-memory layout;
 5d. the per-level device frontier (no kernel of its own: torch stages
    and the native repair walk) through ``cli rem --frontier --device
    cuda``, the host engine refused inside it, node state and text held
@@ -1614,6 +1624,205 @@ def run_multi(seed, workdir):
                                        "host", "peak", "profile")
                     if k in st}
             for label, (_f, st) in cases.items()},
+    }
+
+
+# ----------------------------------------------------------------------
+# phase 5f: the multi chain's score pass, kernel against plain
+# ----------------------------------------------------------------------
+# panel_1a1f-shaped jobs (genomes, bp a genome), one a seed
+CHAIN_PANEL = (6, 80_000)
+CHAIN_SEEDS = 2
+# int32 lanes of the card (132 SMs x 64 a clock at 1.98 GHz) and of one SM
+SM_INT_OPS_PER_S = 64 * 1.98e9
+INT_OPS_PER_S = 132 * SM_INT_OPS_PER_S
+# synthetic levels past the panel's: (D, rows, columns); the last is past
+# the shared-memory layout of (1 + D) * (W + 1) words, so its rows work
+# in device memory
+CHAIN_SYNTHETIC = ((8, 200, 1000), (3, 60, 2500), (8, 3, 7000))
+
+
+def _chain_bounds(dS, dE, dalb, hbp, W):
+    """(bound by operations ms, latency floor ms, operations, widest
+    walk) of one level of the score pass.  Operations: each pair i < j of
+    live columns of a row costs 2D + 1 (deltas, tests, the maximum), a
+    compatible one 2 more (the score) and 4 a present path pair
+    (difference, absolute value, sum, mask).  The busiest SM bounds them:
+    one row a block, so a row's work against one SM's int32 lanes, or the
+    whole level against the card's.  The floor: the widest row's live
+    columns, one block reduction and barrier each (BLOCK_SCAN_S)."""
+    import torch
+
+    D, R, _W1 = dS.shape
+    alive = dalb[:, :W]
+    npair_r = hbp.sum(0).to(torch.int64)
+    lower = torch.ones(W, W, dtype=torch.bool, device=dS.device).tril(-1)
+    ops_r = torch.zeros(R, dtype=torch.int64, device=dS.device)
+    step = max(1, (1 << 26) // max(1, D * W * W))
+    for r0 in range(0, R, step):
+        r1 = min(R, r0 + step)
+        ok = ((dS[:, r0:r1, :W, None] - dE[:, r0:r1, None, :W]) >= 0).all(0)
+        live = alive[r0:r1, :, None] & alive[r0:r1, None, :] & lower
+        npairs = live.sum((1, 2))
+        ncompat = (live & ok).sum((1, 2))
+        ops_r[r0:r1] = (npairs * (2 * D + 1)
+                        + ncompat * (2 + 4 * npair_r[r0:r1]))
+    ops = int(ops_r.sum())
+    by_ops = max(ops / INT_OPS_PER_S, int(ops_r.max()) / SM_INT_OPS_PER_S)
+    walk = int(alive.sum(1).max())
+    return by_ops * 1e3, walk * BLOCK_SCAN_S * 1e3, ops, walk
+
+
+def _hold_chain_level(args, label):
+    """One level's planes through the kernel (a warm-up, then two timed)
+    and the plain loop on the card, each between CUDA events; the two
+    held bit-equal.  Returns (kernel ms, plain ms, _chain_bounds)."""
+    import torch
+
+    from reveal_tpu_torch.index import chain_score
+
+    got = chain_score.chain_scores(*args)
+    k_ms = _event_ms(lambda: chain_score.chain_scores(*args), 2)
+    pl_ms = _event_ms(lambda: chain_score.chain_scores_plain(*args), 1)
+    want = chain_score.chain_scores_plain(*args)
+    if not torch.equal(got, want):
+        r, j = (got != want).nonzero()[0].tolist()
+        raise AssertionError(
+            "chain score kernel differs from plain at %s, row %d column "
+            "%d: %d vs %d" % (label, r, j, int(got[r, j]), int(want[r, j])))
+    dS, dE, dalb, _dL, _dwl, _mulr, hbp, _pairs, _wp, W = args
+    return k_ms, pl_ms, _chain_bounds(dS, dE, dalb, hbp, W)
+
+
+def _chain_planes(rng, D, R, W, dev):
+    """Random planes as chain_dense_multi builds them: near-sorted
+    positions, every third row shorter, about 3 in 4 paths present."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch.index import chain_score
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+
+    haveD = rng.random((D, R)) < 0.75
+    haveD[:2] = True
+    n = np.where(np.arange(R) % 3 == 0, rng.integers(0, W + 1, R), W)
+    dalb = np.arange(W + 1)[None, :] < n[:, None]
+    dalb[:, W] = True
+    dL = rng.integers(20, 200, (R, W + 1))
+    dS = (np.arange(W + 1)[None, None, :] * 150
+          + rng.integers(-400, 400, (D, R, W + 1)))
+    hv = dalb[None] & haveD[:, :, None]
+    dE = np.where(hv, dS + np.where(np.arange(W + 1) < W, dL, 0)[None], 0)
+    dS = np.where(hv, dS, 0)
+    pairs = chain_score.pair_index(D, dev)
+    ia, ib = (p.cpu().numpy() for p in pairs)
+    return (t(dS), t(dE), t(dalb, torch.bool), t(dL),
+            t(rng.integers(-1000, 5000, (R, W + 1))),
+            t(rng.integers(1, 16, R)), t(haveD[ia] & haveD[ib], torch.bool),
+            pairs, 1, W)
+
+
+def run_chain_scores(seed, workdir):
+    """Phase 5f.  The chain score kernel against its plain loop on the
+    card, bit for bit, on every level's planes of panel_1a1f-shaped jobs
+    (6 x 80 kbp through ``cli rem --device cuda``, one a seed, the planes
+    recorded at the wrapper) and on synthetic levels past them; each
+    level's R, W, the kernel's and the plain loop's times (CUDA events),
+    the bound by operations and the latency floor.  Checks one launch a
+    level with candidate columns.  Returns a summary a job."""
+    import numpy as np
+    import torch
+
+    from reveal_tpu_torch import cli
+    from reveal_tpu_torch.index import chain_score, devloop_multi
+    from reveal_tpu_torch.kernels import build
+
+    lib = build.load_library()
+    wrapper = chain_score.chain_scores
+    jobs = []
+    for k in range(CHAIN_SEEDS):
+        fastas, _bp, _want = write_population(*CHAIN_PANEL, seed + k,
+                                              workdir)
+        levels = []
+
+        def record(*args):
+            levels.append(args)
+            return wrapper(*args)
+
+        chain_score.chain_scores = record
+        before = chain_score.LAUNCHES
+        t0 = time.perf_counter()
+        try:
+            cli.main(["rem", *fastas, "--device", "cuda", "-o",
+                      os.path.join(workdir, "chain_%d.gfa" % k)])
+        finally:
+            chain_score.chain_scores = wrapper
+        t_job = time.perf_counter() - t0
+        st = devloop_multi.LAST_STATS
+        wide = [a for a in levels if a[-1] > 0]
+        if (st.get("abort") != 0 or st["dispatches"] != 1
+                or st["chain_score_launches"] != len(wide)
+                or chain_score.LAUNCHES - before != len(wide)
+                or st["chain_steps"] != sum(a[-1] for a in levels)):
+            raise AssertionError(
+                "seed %d: %d chain score launches for %d levels with "
+                "columns of %d chained (%r)"
+                % (seed + k, st.get("chain_score_launches", -1), len(wide),
+                   len(levels), {key: st.get(key) for key in (
+                       "abort", "dispatches", "levels", "chain_steps")}))
+        rows = []
+        for i, args in enumerate(wide):
+            k_ms, pl_ms, (b_ms, f_ms, ops, walk) = _hold_chain_level(
+                args, "seed %d level %d" % (seed + k, i))
+            rows.append((args[0].shape[1], args[-1], walk, ops, k_ms, pl_ms,
+                         b_ms, f_ms))
+        print("chain score, seed %d (6 x %d bp, rem %.3f s, loop %.3f s, %d "
+              "levels): kernel equal to plain on all %d levels with "
+              "columns; R/W/widest walk: kernel ms, plain ms, bound by "
+              "operations ms, latency floor ms: %s"
+              % (seed + k, CHAIN_PANEL[1], t_job, st["loop_seconds"],
+                 st["levels"], len(wide), "; ".join(
+                     "%d/%d/%d: %.6f, %.3f, %.6f, %.6f" % (r[:3] + r[4:])
+                     for r in rows)))
+        tot = [sum(r[i] for r in rows) for i in range(3, 8)]
+        print("chain score, seed %d, the job's levels summed: %d launches, "
+              "%d operations; kernel %.6f ms, plain %.3f ms, bound by "
+              "operations %.6f ms, latency floor %.6f ms"
+              % (seed + k, len(rows), *tot))
+        jobs.append({"seed": seed + k, "launches": len(rows), "ops": tot[0],
+                     "ms": tot[1], "plain_ms": tot[2], "bound_ms": tot[3],
+                     "bound_latency_ms": tot[4],
+                     "levels": [r[:2] for r in rows]})
+    rng = np.random.default_rng(seed)
+    for D, R, W in CHAIN_SYNTHETIC:
+        args = _chain_planes(rng, D, R, W, torch.device("cuda"))
+        k_ms, pl_ms, (b_ms, f_ms, ops, walk) = _hold_chain_level(
+            args, "synthetic D %d R %d W %d" % (D, R, W))
+        print("chain score, synthetic D %d R %d W %d (rows in %s): kernel "
+              "equal to plain; kernel %.6f ms, plain %.3f ms, %d "
+              "operations, bound by operations %.6f ms, latency floor %.6f "
+              "ms (widest walk %d)"
+              % (D, R, W, "shared memory" if lib.rtt_chain_score_on_chip(
+                  D, W) else "device memory", k_ms, pl_ms, ops, b_ms, f_ms,
+                 walk))
+    return {
+        "name": "chain_score_multi",
+        "route": "cuda",
+        "source": "reveal_tpu_torch/csrc/chain_score_multi.cu",
+        "replaces": "reveal_tpu/index/devloop.py _build_kernel_multi",
+        "replaces_kind": "XLA-level code (the multi chain's score pass), no "
+                         "Pallas kernel",
+        "max_abs_err": 0,
+        "main_path": "rem, 3-8 paths: the multi loop's chain, a launch a "
+                     "level",
+        "launches": jobs[0]["launches"],
+        "ms": jobs[0]["ms"], "plain_ms": jobs[0]["plain_ms"],
+        "bound_ms": jobs[0]["bound_ms"], "bound_by": "operations",
+        "bound_latency_ms": jobs[0]["bound_latency_ms"],
+        "library_ms": None,
+        "jobs": jobs,
     }
 
 
@@ -4113,13 +4322,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--length", type=int, default=2_000_000)
     ap.add_argument("--only", choices=["kernels", "profile", "multi",
-                                       "frontier", "single", "align",
-                                       "esa", "dist", "mesh"],
+                                       "chain", "frontier", "single",
+                                       "align", "esa", "dist", "mesh"],
                     default=None,
                     help="'kernels': phases 1-4 only (the build and the "
                          "kernels against their plain versions); "
                          "'profile': phases 1-2 and 5b only; 'multi': "
-                         "phases 1-2, window-resolve and 5c; 'frontier': "
+                         "phases 1-2, window-resolve, 5c and 5f; "
+                         "'chain': phases 1-2 and 5f; 'frontier': "
                          "phases 1-2 and 5d; 'single': phases 1-2 and 5e; "
                          "'align': phases 1-2 and 7; 'esa': phases 1-2 "
                          "and 8; 'dist': phases 1-2, 5d (b)-(d) and 9; "
@@ -4187,8 +4397,13 @@ def main(argv=None):
         if args.only == "multi":
             check_window_resolve(dev)
             run_multi(args.seed, wd)
-            print("chip_smoke --only multi: phases 1-2, window-resolve and "
-                  "5c passed")
+            run_chain_scores(args.seed, wd)
+            print("chip_smoke --only multi: phases 1-2, window-resolve, 5c "
+                  "and 5f passed")
+            return
+        if args.only == "chain":
+            run_chain_scores(args.seed, wd)
+            print("chip_smoke --only chain: phases 1-2 and 5f passed")
             return
         if args.only == "frontier":
             run_frontier(args.seed, wd)
@@ -4230,6 +4445,8 @@ def main(argv=None):
         done("phase 5-5b")
         _case_a, multi = run_multi(args.seed, wd)
         done("phase 5c")
+        rows.append(run_chain_scores(args.seed, wd))
+        done("phase 5f")
         frontier = run_frontier(args.seed, wd)
         done("phase 5d")
         single = run_single(args.seed, wd)

@@ -14,7 +14,9 @@ level on the device.  Each level:
 3. ``trim_dim_multi`` once a window coordinate, then the same-path-set
    filter (``same_paths``);
 4. ``chain_dense_multi``: the D-dimensional sum-of-pairs chain DP and
-   the ``largest`` pick;
+   the ``largest`` pick, its score pass in ``chain_score.chain_scores``
+   (the CUDA kernel ``csrc/chain_score_multi.cu`` on the card, one
+   launch a level);
 5. ``log_anchors_multi``, ``children_multi`` and ``split_multi``: the
    anchor log, the leading, trailing and parallel children, the
    three-reset segmented running-min LCP, lowercasing and the 3-way
@@ -51,7 +53,9 @@ import torch
 
 from ..core import trace
 from ..core.encoding import N_BYTE, SENTINEL
+from . import chain_score
 from . import window_resolve as wr
+from .chain_score import pair_index, pair_pen
 from .devloop import (
     A30,
     ABORT_CAND_OVERFLOW,
@@ -93,7 +97,9 @@ C_SEG, C_L, C_KEY, C_PM, C_ORD, C_W, C_P = range(7)
 # JAX package's LAST_STATS (levels, dispatches, anchors, abort,
 # trim_steps, chain_steps, repair_steps) and the port's own:
 # repair_passes (passes with candidates), window_resolve_launches (the
-# kernel's launches; 0 on the CPU), host_syncs (device-to-host reads of
+# kernel's launches; 0 on the CPU), chain_score_launches (the chain score
+# kernel's launches in the last dispatch: one a level with live segments
+# and candidate columns; 0 on the CPU), host_syncs (device-to-host reads of
 # the loop), repair_applied / repair_chain_max / repair_moved_slots (as
 # in the pairwise forest), caps (of the last dispatch) and loop_seconds.
 LAST_STATS = {}
@@ -395,22 +401,6 @@ def same_paths(table, SMAX):
 # ----------------------------------------------------------------------
 # dense chain + pick for D dims (devloop.py:2759-3048)
 # ----------------------------------------------------------------------
-def _pairs(D, dev):
-    ia, ib = zip(*[(a, b) for a in range(D) for b in range(a + 1, D)])
-    return (torch.tensor(ia, dtype=torch.long, device=dev),
-            torch.tensor(ib, dtype=torch.long, device=dev))
-
-
-def _pair_pen(delta, pairs, hbp):
-    """Sum over path pairs (a, b) present in the segment of
-    |delta_a - delta_b|: ``delta`` (D, R, ...), ``pairs`` the index
-    tensors of ``_pairs``, ``hbp`` (NPAIR, R)."""
-    ia, ib = pairs
-    t = torch.abs(delta[ia] - delta[ib])
-    mask = hbp.reshape(hbp.shape + (1,) * (delta.dim() - 2))
-    return torch.where(mask, t, 0).sum(0, dtype=I32)
-
-
 def chain_dense_multi(table, seg_tab, nseg, segkey, maxcnt, abort, ws, wp,
                       CW, D, reads):
     """Sparse chaining DP (schemes.py:20-104, sum-of-pairs gap cost over
@@ -486,10 +476,10 @@ def chain_dense_multi(table, seg_tab, nseg, segkey, maxcnt, abort, ws, wp,
     wseg = haveD.sum(dim=0, dtype=I32)
     cpair = (wseg * (wseg - 1)) // 2
     dmul = ws * dL * cpair[:, None]
-    pairs = _pairs(D, dev)
+    pairs = pair_index(D, dev)
     hbp = haveD[pairs[0]] & haveD[pairs[1]]            # (NPAIR, R)
     # left-pseudo link weight
-    penl = _pair_pen(dS - (pbeg - 1)[:, :, None], pairs, hbp)
+    penl = pair_pen(dS - (pbeg - 1)[:, :, None], pairs, hbp)
     dwl = torch.where(dalb, dmul - wp * penl, NEG)
 
     def chunks(per_col):
@@ -504,24 +494,10 @@ def chain_dense_multi(table, seg_tab, nseg, segkey, maxcnt, abort, ws, wp,
         act_parts.append(torch.where(dom, cols, BIG).amin(dim=2))
     dact = torch.cat(act_parts, dim=1)
 
-    # scores: sequential pass over candidate columns up to the widest
-    # live segment; column j only sees columns before it
-    score = torch.full((R, W1), NEG, dtype=I32, device=dev)
-    mulr = ws * cpair
-    for j in range(W):
-        if j == 0:
-            mx = torch.full((R,), NEG, dtype=I32, device=dev)
-        else:
-            delta = dS[:, :, j, None] - dE[:, :, :j]          # (D, R, j)
-            compat = dalb[:, :j] & (delta >= 0).all(0)
-            tw = torch.where(compat,
-                             score[:, :j] - wp * _pair_pen(delta, pairs, hbp),
-                             NEG)
-            mx = tw.amax(dim=1)
-        sc_new = torch.maximum(
-            dwl[:, j], torch.where(mx > NEG // 2, mx + dL[:, j] * mulr, NEG)
-        )
-        score[:, j] = torch.where(dalb[:, j], sc_new, NEG)
+    # scores: one sequential pass over the candidate columns (one kernel
+    # launch on the card)
+    score = chain_score.chain_scores(dS, dE, dalb, dL, dwl, ws * cpair, hbp,
+                                     pairs, wp, W)
     rounds = W
 
     # links: exact winner reconstruction, lex key (tmpw, score_j,
@@ -536,7 +512,7 @@ def chain_dense_multi(table, seg_tab, nseg, segkey, maxcnt, abort, ws, wp,
             & (delta >= 0).all(0)
         )
         tw = torch.where(compat,
-                         score[:, None, :] - wp * _pair_pen(delta, pairs, hbp),
+                         score[:, None, :] - wp * pair_pen(delta, pairs, hbp),
                          NEG)
         mx = tw.amax(dim=2)
         t1 = tw == mx[:, :, None]
@@ -1010,6 +986,7 @@ def rem_device_multi(T, SA, LCP, path_ivs, path_samples, minlength, minn,
     dispatches = repair_total = syncs = 0
     launches0 = wr.LAUNCHES
     for _attempt in range(6):
+        chain_launches0 = chain_score.LAUNCHES
         seg_tab = np.zeros((caps.SMAX, 2 + 3 * D), dtype=np.int32)
         seg_tab[0, 0] = -1            # root parent
         seg_tab[0, 2:2 + D] = begs
@@ -1042,7 +1019,9 @@ def rem_device_multi(T, SA, LCP, path_ivs, path_samples, minlength, minn,
         abort=abort, trim_steps=trim_steps, chain_steps=chain_steps,
         repair_steps=repair_steps, repair_rounds_total=repair_total,
         repair_passes=out["repair_passes"],
-        window_resolve_launches=wr.LAUNCHES - launches0, host_syncs=syncs,
+        window_resolve_launches=wr.LAUNCHES - launches0,
+        chain_score_launches=chain_score.LAUNCHES - chain_launches0,
+        host_syncs=syncs,
         repair_applied=out["rstats"][0], repair_chain_max=out["rstats"][1],
         repair_moved_slots=out["rstats"][2], caps=vars(caps).copy(),
         paths=D, slots=n,

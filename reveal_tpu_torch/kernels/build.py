@@ -142,6 +142,13 @@ def load_library() -> ctypes.CDLL:
     # (L2p, &threads, &k4) -> 1 if the kernel takes rows of L2p columns
     lib.rtt_mea_score_plan.argtypes = [ci, vp, vp]
     lib.rtt_mea_score_plan.restype = ci
+    # (dS, dE, dalb, dL, dwl, mulr, hbp, ia, ib, score, D, R, W, npair,
+    #  wp, stream)
+    lib.rtt_chain_score_multi_i32.argtypes = [vp] * 10 + [ci] * 5 + [vp]
+    lib.rtt_chain_score_multi_i32.restype = ci
+    # (D, W) -> 1 if the rows of a level fit shared memory
+    lib.rtt_chain_score_on_chip.argtypes = [ci, ci]
+    lib.rtt_chain_score_on_chip.restype = ci
     return lib
 
 
