@@ -91,14 +91,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    root in the forest's level loop with the flat chain, its repair passes
    on the repair-pass kernel) through ``cli rem --frontier --device
    cuda``, the host engine refused inside it: (a) ``simulate_population(2,
-   500_000, seed)`` under ``REVEAL_TPU_DEVLOOP_MODE=full``, taken whole:
-   GFA bytes against the host engine's, one repair launch a pass and no
-   window-resolve launch; the default route and the host engine timed on
-   the same pair; the loop again with a synchronised clock around its
-   stages, under ``torch.profiler`` (launches, host syncs, busy share,
-   peak memory; ``chain_flat``'s calls, rounds, launches, host syncs and
-   device time apart); (b) 2 x 1 Mbp under
-   mode full: the loop aborts with ``ABORT_CHAIN_ROUNDS`` at level 0 (at
+   500_000, seed)`` with the host prefix and forest stood in to decline,
+   taken whole: GFA bytes against the host engine's, one repair launch a
+   pass and no window-resolve launch; the default route and the host
+   engine timed on the same pair; the loop again with its stage spans on
+   and under ``torch.profiler`` (launches, host syncs, busy share, peak
+   memory; ``chain_flat``'s calls, rounds, launches, host syncs and device
+   time apart); (b) 2 x 1 Mbp with the forest stood in to decline: the
+   loop aborts with ``ABORT_CHAIN_ROUNDS`` at level 0 (at
    seed 1) and the per-level frontier takes the pair, node state and text
    against the host engine's; (c) 2 x 200 kbp by the default route with
    the forest stood in to decline: the loop takes it, GFA bytes against
@@ -233,6 +233,9 @@ import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the fixture writers the port's CPU tests share
+sys.path.insert(0, os.path.join(REPO, "tests"))
+from torch_support import diverge, write_bubble_chain  # noqa: E402
 
 RBV = 1024   # repair candidates per round of the batched rounds
 WRV = 256    # window-resolve lookback
@@ -544,30 +547,8 @@ def _related_pairs(rng, count, lo, hi):
         n = int(rng.integers(lo, hi + 1))
         x = bases[rng.integers(0, 4, n)].copy()
         pairs.append((x.tobytes().decode(),
-                      _diverge(rng, x, 0.12, hi).decode()))
+                      diverge(rng, x, 0.12, hi).decode()))
     return pairs
-
-
-def _diverge(rng, seq, sub_rate, maxlen=None):
-    """A copy of ``seq`` (uint8 array of ACGT) with ``sub_rate`` true
-    substitutions and one indel of 1..12 bp per ~260 bp."""
-    import numpy as np
-
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    code = np.searchsorted(bases, seq)
-    hit = rng.random(len(seq)) < sub_rate
-    code[hit] = (code[hit] + rng.integers(1, 4, int(hit.sum()))) % 4
-    out = bytearray(bases[code].tobytes())
-    for _ in range(len(seq) // 260 + 1):
-        p = int(rng.integers(0, len(out)))
-        ln = int(rng.integers(1, 13))
-        if rng.random() < 0.5 and len(out) > 2 * ln:
-            del out[p:p + ln]
-        else:
-            out[p:p] = bases[rng.integers(0, 4, ln)].tobytes()
-    if maxlen is not None:
-        del out[maxlen:]
-    return bytes(out)
 
 
 def _grid_err(got, ref, what):
@@ -1999,28 +1980,14 @@ def run_frontier(seed, workdir, labels="abc"):
 # phase 5e: the single-root device loop
 # ----------------------------------------------------------------------
 # bp a genome of each case, simulate_population(2, L, seed): (a) the main
-# case, taken whole by the loop under REVEAL_TPU_DEVLOOP_MODE=full (the
-# JAX loop on a CPU at seed 1: 27 levels, 4,344 anchors, 3 dispatches);
+# case, taken whole by the loop with the host prefix and forest stood in
+# to decline (the JAX loop on a CPU at seed 1: 27 levels, 4,344 anchors,
+# 3 dispatches);
 # (b) past the loop's reach: the root's chain needs more than 384
 # wavefront rounds (the JAX loop on a CPU at seed 1 aborts with
 # ABORT_CHAIN_ROUNDS at level 0), so the per-level frontier takes it;
 # (c) the default route with the forest stood in to decline
 SINGLE_CASES = (("a", 500_000), ("b", 1_000_000), ("c", 200_000))
-
-
-@contextlib.contextmanager
-def devloop_mode(mode):
-    """``REVEAL_TPU_DEVLOOP_MODE`` set to ``mode`` (None: unset) inside a
-    ``with`` block."""
-    old = os.environ.pop("REVEAL_TPU_DEVLOOP_MODE", None)
-    if mode is not None:
-        os.environ["REVEAL_TPU_DEVLOOP_MODE"] = mode
-    try:
-        yield
-    finally:
-        os.environ.pop("REVEAL_TPU_DEVLOOP_MODE", None)
-        if old is not None:
-            os.environ["REVEAL_TPU_DEVLOOP_MODE"] = old
 
 
 def _read(path):
@@ -2068,15 +2035,34 @@ def profile_split(module, outer, inner, run, count):
     return prof
 
 
-def _single_cli(fastas, out, mode):
-    """``cli rem --device cuda`` under ``REVEAL_TPU_DEVLOOP_MODE`` =
-    ``mode`` with the host engine refused (``_frontier_cli``)."""
-    with devloop_mode(mode):
+# devloop.LAST_STATS["fallback"] of a pair whose host prefix and forest
+# were stood in to decline (``_single_cli(..., forest=False)``)
+NO_FOREST = "forest: stood in"
+
+
+def _single_cli(fastas, out, forest=True):
+    """``cli rem --device cuda`` with the host engine refused
+    (``_frontier_cli``); without ``forest`` the host prefix and forest
+    decline before they run (a stand-in: no input property is known to
+    make them decline), so the single-root loop takes the pair."""
+    from reveal_tpu_torch.align import rem
+    from reveal_tpu_torch.index import devloop
+
+    def declines(*_a, **_k):
+        devloop.LAST_STATS["fallback"] = "stood in"
+
+    hybrid = rem._rem_device_hybrid
+    if not forest:
+        rem._rem_device_hybrid = declines
+    try:
         return _frontier_cli(fastas, out)
+    finally:
+        rem._rem_device_hybrid = hybrid
 
 
 def run_single_a(fastas, total_bp, workdir):
-    """Case (a): the single-root loop takes the pair whole (mode full);
+    """Case (a): the single-root loop takes the pair whole (the host
+    prefix and forest stood in to decline);
     GFA bytes against the host engine's, one repair launch a pass and no
     window-resolve launch; the default route and the host engine timed on
     the same input; the loop again with its stages clocked and under
@@ -2092,11 +2078,11 @@ def run_single_a(fastas, total_bp, workdir):
     out = os.path.join(workdir, "single_a.gfa")
     torch.cuda.reset_peak_memory_stats()
     repair.LAUNCHES = wr.LAUNCHES = 0
-    seen, t_e2e = _single_cli(fastas, out, "full")
+    seen, t_e2e = _single_cli(fastas, out, forest=False)
     launches, wr_launches = repair.LAUNCHES, wr.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     st = dict(devloop.LAST_STATS)
-    if st.get("abort") != 0 or st.get("fallback") is not None or (
+    if st.get("abort") != 0 or st.get("fallback") != NO_FOREST or (
             "forest" in st):
         raise AssertionError("the single-root loop did not take case a "
                              "whole: %r" % st)
@@ -2114,11 +2100,12 @@ def run_single_a(fastas, total_bp, workdir):
     if wr_launches:
         raise AssertionError("window_resolve launched %d times on the "
                              "single-root loop" % wr_launches)
-    print("single-root case a (2 x %d bp, REVEAL_TPU_DEVLOOP_MODE=full): "
-          "GFA byte-identical to the host engine's (%d bytes), host engine "
-          "not run inside; levels %d, anchors %d, dispatches %d, chain "
-          "rounds %d (last dispatch), trim rows %d, repair passes %d "
-          "(repair_pass launches %d, window_resolve 0), candidates applied "
+    print("single-root case a (2 x %d bp, the forest stood in to "
+          "decline): GFA byte-identical to the host engine's (%d bytes), "
+          "host engine not run inside; levels %d, anchors %d, dispatches "
+          "%d, chain rounds %d (last dispatch), trim rows %d, repair "
+          "passes %d (repair_pass launches %d, window_resolve 0), "
+          "candidates applied "
           "%d, longest run %d, moved slots %d; loop %.6f s, end to end "
           "(fastas -> GFA, CLI in-process) %.6f s (%.6f Mbp/s); peak device "
           "memory %.6f GB"
@@ -2129,7 +2116,7 @@ def run_single_a(fastas, total_bp, workdir):
              total_bp / 1e6 / t_e2e, peak / 1e9))
 
     _seen, t_hybrid = _single_cli(
-        fastas, os.path.join(workdir, "single_a_hybrid.gfa"), None)
+        fastas, os.path.join(workdir, "single_a_hybrid.gfa"))
     hyb = dict(devloop.LAST_STATS)
     if (_read(os.path.join(workdir, "single_a_hybrid.gfa")) != host_bytes
             or hyb.get("fallback") is not None or "forest" not in hyb):
@@ -2142,7 +2129,7 @@ def run_single_a(fastas, total_bp, workdir):
 
     def full():
         _single_cli(fastas, os.path.join(workdir, "single_a_run.gfa"),
-                    "full")
+                    forest=False)
 
     rec, t_clock = run_traced(full)
     print("single-root case a with the stage spans on: %s; a level's "
@@ -2156,14 +2143,17 @@ def run_single_a(fastas, total_bp, workdir):
                   "; peak device memory %.6f GB"
                   % (torch.cuda.max_memory_allocated() / 1e9))
     cf = prof["chain_flat"]
+    chain_s = rec["level.chain"]
+    level_s = sum(v for k, v in rec.items()
+                  if k.startswith("level.") and k.count(".") == 1)
     print("single-root case a, chain_flat apart: %d calls (every level of "
-          "every dispatch), %d wavefront rounds, %.6f s on the synchronised "
-          "clock (%.6f ms a round; the loop's other stages %.6f s); traced: "
-          "%d kernel launches (%.1f a round), %d host syncs, device time "
-          "%.6f s of its %.6f s traced"
-          % (cf["calls"], cf["count"], secs["chain_flat"],
-             secs["chain_flat"] * 1e3 / max(cf["count"], 1),
-             sum(secs.values()) - secs["chain_flat"], cf["launches"],
+          "every dispatch), %d wavefront rounds, %.6f s in its stage span "
+          "level.chain (%.6f ms a round; the loop's other stages %.6f s); "
+          "traced: %d kernel launches (%.1f a round), %d host syncs, device "
+          "time %.6f s of its %.6f s traced"
+          % (cf["calls"], cf["count"], chain_s,
+             chain_s * 1e3 / max(cf["count"], 1), level_s - chain_s,
+             cf["launches"],
              cf["launches"] / max(cf["count"], 1), cf["host_syncs"],
              cf["device_s"], cf["traced_s"]))
     for us, count, key in prof["device"]:
@@ -2175,14 +2165,15 @@ def run_single_a(fastas, total_bp, workdir):
     return dict(launches=launches, levels=st["levels"],
                 dispatches=st["dispatches"], loop_seconds=st["loop_seconds"],
                 chain_rounds=cf["count"],
-                chain_flat_seconds=secs["chain_flat"],
+                chain_flat_seconds=chain_s,
                 profile={k: prof[k] for k in ("launches", "host_syncs",
                                               "busy", "device_s",
                                               "traced_wall_s")})
 
 
 def run_single_b(fastas, total_bp, want, workdir):
-    """Case (b): mode full on a pair past the loop's reach: the loop
+    """Case (b): the forest stood in to decline on a pair past the
+    loop's reach: the loop
     aborts at level 0 with ABORT_CHAIN_ROUNDS and the per-level frontier
     takes the input on the card, with the host engine's node state and
     text, every path spelling its input."""
@@ -2193,9 +2184,10 @@ def run_single_b(fastas, total_bp, want, workdir):
     state, T, host_bytes, t_host = host_reference(
         fastas, os.path.join(workdir, "single_b_host.gfa"))
     out = os.path.join(workdir, "single_b.gfa")
-    seen, t_e2e = _single_cli(fastas, out, "full")
+    seen, t_e2e = _single_cli(fastas, out, forest=False)
     st, fr = dict(devloop.LAST_STATS), dict(devfrontier.LAST_STATS)
-    why = "single-root loop: kernel abort code 8 (ABORT_CHAIN_ROUNDS)"
+    why = ("%s; single-root loop: kernel abort code 8 (ABORT_CHAIN_ROUNDS)"
+           % NO_FOREST)
     if (st.get("abort") != 8 or st.get("levels") != 1
             or st.get("fallback") != why or fr.get("fallback") != why
             or not fr.get("applies")):
@@ -2204,10 +2196,11 @@ def run_single_b(fastas, total_bp, want, workdir):
         raise AssertionError("single-root case b: node state or text differ "
                              "from the host engine's")
     _check_paths(out, want)
-    print("single-root case b (2 x %d bp, REVEAL_TPU_DEVLOOP_MODE=full): the "
-          "loop declined (%s) after %d dispatches, chain rounds %d, trim "
-          "rows %d, in %.6f s; the per-level frontier took the pair: "
-          "%d levels, %d apply calls, %d anchor steps, %.6f s; node state "
+    print("single-root case b (2 x %d bp, the forest stood in to "
+          "decline): the loop declined (%s) after %d dispatches, chain "
+          "rounds %d, trim rows %d, in %.6f s; the per-level frontier took "
+          "the pair: %d levels, %d apply calls, %d anchor steps, %.6f s; "
+          "node state "
           "and text equal to the host engine's, every path spells its "
           "input, GFA bytes %s the host engine's; end to end %.6f s, host "
           "engine %.6f s"
@@ -2238,7 +2231,7 @@ def run_single_c(fastas, total_bp, workdir):
     def run():
         devloop.rem_device_forest = declines
         try:
-            return _single_cli(fastas, out, None)
+            return _single_cli(fastas, out)
         finally:
             devloop.rem_device_forest = forest
 
@@ -2280,66 +2273,6 @@ def run_single(seed, workdir):
         else:
             out["held"] = run_single_c(fastas, total_bp, workdir)
     return out
-
-
-def write_bubble_chain(path, seed, n_small=64, small=500, n_big=8,
-                       big=1900, npaths=6, flank=40, bubbles=None):
-    """Write a GFA of a chain of bubbles between shared flank nodes,
-    ``npaths`` paths, every bubble with one allele per path: each allele
-    is its bubble's random ancestor with 5-7.5% substitutions (10-15%
-    between two alleles) and indels of up to 12 bp.  Returns {path name:
-    sequence}; a list given as ``bubbles`` receives the alleles of each
-    bubble in path order."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    sizes = [small] * n_small + [big] * n_big
-    order = rng.permutation(len(sizes))
-    segs = []           # (id, sequence)
-    links = []
-    walks = [[] for _ in range(npaths)]
-    seqs = [[] for _ in range(npaths)]
-    nid = 0
-
-    def add(seq):
-        nonlocal nid
-        nid += 1
-        segs.append((nid, seq))
-        return nid
-
-    prev = add(bases[rng.integers(0, 4, flank)].tobytes().decode())
-    for k in range(npaths):
-        walks[k].append(prev)
-        seqs[k].append(segs[-1][1])
-    for bi in order:
-        n = int(sizes[bi] * (0.94 + 0.06 * rng.random()))
-        anc = bases[rng.integers(0, 4, n)].copy()
-        alleles = []
-        for k in range(npaths):
-            rate = 0.05 + 0.025 * rng.random()
-            alleles.append(add(_diverge(rng, anc, rate).decode()))
-        if bubbles is not None:
-            bubbles.append([segs[a - 1][1] for a in alleles])
-        sink_seq = bases[rng.integers(0, 4, flank)].tobytes().decode()
-        sink = add(sink_seq)
-        for k, a in enumerate(alleles):
-            links.append((prev, a))
-            links.append((a, sink))
-            walks[k] += [a, sink]
-            seqs[k] += [segs[a - 1][1], sink_seq]
-        prev = sink
-    with open(path, "w") as fh:
-        fh.write("H\tVN:Z:1.0\n")
-        for i, s in segs:
-            fh.write("S\t%d\t%s\n" % (i, s))
-        for u, v in links:
-            fh.write("L\t%d\t+\t%d\t+\t0M\n" % (u, v))
-        for k in range(npaths):
-            fh.write("P\tp%d\t%s\t%s\n" % (
-                k, ",".join("%d+" % n for n in walks[k]),
-                ",".join(["0M"] * (len(walks[k]) - 1))))
-    return {"p%d" % k: "".join(seqs[k]) for k in range(npaths)}
 
 
 def _check_paths(gfa, want):

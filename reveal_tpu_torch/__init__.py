@@ -12,10 +12,9 @@ Covered so far:
 * pairwise ``rem --frontier`` (two fastas -> GFA), whose residual
   recursion runs on the device as the level kernel of ``index/devloop.py``
   with each repair pass one launch of a CUDA kernel
-  (``csrc/repair_pass.cu``); a pair the forest declines (and every pair
-  under ``REVEAL_TPU_DEVLOOP_MODE=full``) runs the whole recursion from
-  the root in the same level loop with the flat chain (the single-root
-  loop, ``devloop.rem_device_loop``);
+  (``csrc/repair_pass.cu``); a pair the forest declines runs the whole
+  recursion from the root in the same level loop with the flat chain
+  (the single-root loop, ``devloop.rem_device_loop``);
 * multi-genome ``rem --frontier`` (three or more fastas, up to 8 contig
   paths -> GFA), whose whole recursion runs on the device as the level
   loop of ``index/devloop_multi.py`` with the repair rounds' insertion
@@ -55,11 +54,12 @@ Covered so far:
   process a rank in a ``torch.distributed`` group, gloo on the CPU and
   NCCL on cards, a world of one unless the caller set up a group with
   ``parallel/distributed.init_distributed``), and the sharded pipeline
-  step (``parallel/mesh.build_pipeline_step``).
-
-Not covered: the mesh frontier (``DeviceFrontier(mesh=)``, ``mesh=`` on
-``align_seqs``/``align_genomes``) and multi-process ``rem`` (ROADMAP
-queue 1 item 9).
+  step (``parallel/mesh.build_pipeline_step``);
+* the mesh frontier (``DeviceFrontier(mesh=)``, ``mesh=`` on
+  ``align_seqs``/``align_genomes``: the per-level frontier's slots
+  sharded over the ranks of a mesh) and multi-process ``rem``
+  (``align.rem.rem_on_world``, every rank of a ``World`` making the same
+  call), and the multichip dry run (``parallel/dryrun.py``).
 
 Entry points:
 

@@ -19,12 +19,12 @@ the big segments and the deferred forest on the device
 (``index/devloop.rem_device_forest``), and for an input they decline (a
 host prefix that cannot defer; a kernel abort code such as
 ``ABORT_DUP_REF``, which needs the host's dict-aliasing) the single-root
-loop, the whole recursion on the device (``index/devloop.rem_device_loop``;
-``REVEAL_TPU_DEVLOOP_MODE=full`` runs it alone).  Every other input
-(graph inputs, multi-contig pairs, ``--notrim``, seeding, size gates,
-non-default picking) and every input the loops decline (a kernel abort
-code such as ``ABORT_MAXMUMS`` or ``ABORT_CHAIN_ROUNDS``; more than 8
-paths; capacity retries that run out; a text of 2^30 bytes or more) runs
+loop, the whole recursion on the device (``index/devloop.rem_device_loop``).
+Every other input (graph inputs, multi-contig pairs, ``--notrim``,
+seeding, size gates, non-default picking) and every input the loops
+decline (a kernel abort code such as ``ABORT_MAXMUMS`` or
+``ABORT_CHAIN_ROUNDS``; more than 8 paths; capacity retries that run
+out; a text of 2^30 bytes or more) runs
 the per-level frontier on the same device (``_align_loop_frontier`` over
 ``index/devfrontier.DeviceFrontier``), as the reference routes it; a
 decline is logged and recorded in ``LAST_STATS["fallback"]`` of
@@ -904,12 +904,11 @@ def _rem_device_loop(
     Returns the anchor count, or None when the input is not eligible or
     every route declined it (the caller runs the per-level frontier).
 
-    ``REVEAL_TPU_DEVLOOP_MODE`` is ``hybrid`` (the default: the host
-    prefix and device forest first, the single-root loop for what they
-    decline) or ``full`` (the single-root loop alone).  A ``--notrim``
-    input is not taken: the loop always trims (the port's frontier
-    honours it).  ``devloop.LAST_STATS["fallback"]`` names every route
-    that declined, ``loop_seconds`` the single-root loop's time."""
+    The host prefix and device forest run first, the single-root loop
+    takes what they decline.  A ``--notrim`` input is not taken: the loop
+    always trims (the port's frontier honours it).
+    ``devloop.LAST_STATS["fallback"]`` names every route that declined,
+    ``loop_seconds`` the single-root loop's time."""
     devloop.LAST_STATS.clear()
     if not _pairwise_fast_eligible(G, root, cfg):
         return None
@@ -919,15 +918,12 @@ def _rem_device_loop(
         return None  # device chain arithmetic is int32-exact
     if cfg.minlength < 1:
         return None  # p-value stop needs the host picker
-    declined = []
-    mode = os.environ.get("REVEAL_TPU_DEVLOOP_MODE", "hybrid")
-    if mode == "hybrid":
-        steps = _rem_device_hybrid(G, t, root, cfg, device)
-        if steps is not None:
-            return steps
-        declined.append("forest: " + devloop.LAST_STATS["fallback"])
-        log.info("device forest declined (%s): single-root loop on %s",
-                 declined[-1], device)
+    steps = _rem_device_hybrid(G, t, root, cfg, device)
+    if steps is not None:
+        return steps
+    forest = "forest: " + devloop.LAST_STATS["fallback"]
+    log.info("device forest declined (%s): single-root loop on %s", forest,
+             device)
 
     main = root.main
     t0 = time.perf_counter()
@@ -946,11 +942,10 @@ def _rem_device_loop(
     st = devloop.LAST_STATS
     st["loop_seconds"] = time.perf_counter() - t0
     if res is None:
-        declined.append("single-root loop: "
-                        + _decline_reason(st, len(main.T)))
-        st["fallback"] = "; ".join(declined)
+        st["fallback"] = "%s; single-root loop: %s" % (
+            forest, _decline_reason(st, len(main.T)))
         return None
-    st["fallback"] = "; ".join(declined) or None
+    st["fallback"] = forest
     anchors, T_out, levels = res
     main.T[:] = T_out  # device lowercased text -> host mirror
     with trace.span("rem.replay"):

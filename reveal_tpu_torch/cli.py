@@ -26,10 +26,9 @@ and, on a card, CUDA activity, written into DIR).
 ``rem`` runs the recursion on ``--device`` (default ``cuda``; without a
 card that is an error, never a quiet switch to the CPU): two
 single-sequence fastas through the native host prefix and the device
-forest (what they decline, and with ``REVEAL_TPU_DEVLOOP_MODE=full``
-every such pair, through the single-root device loop), three or more
-(up to 8 contig paths) through the multi-genome device loop, and every
-other input (``.gfa`` inputs, multi-contig pairs, ``--notrim``,
+forest (what they decline through the single-root device loop), three
+or more (up to 8 contig paths) through the multi-genome device loop, and
+every other input (``.gfa`` inputs, multi-contig pairs, ``--notrim``,
 ``--seedsize``, ``--gcmodel``, ``--maxsize``) through the per-level
 device frontier.  An input the multi loop declines (a segment with more
 than ``--maxmums`` candidates, which bacterial-scale inputs have at the
@@ -1196,12 +1195,12 @@ def build_parser():
         help="Recursive exact-match graph alignment on a device.",
         description="Two single-sequence fastas: native host prefix, then "
         "the device forest, and the single-root device loop for what they "
-        "decline (REVEAL_TPU_DEVLOOP_MODE=full: the loop alone).  Three or "
-        "more (up to 8 contig paths): the multi-genome device loop.  Every "
-        "other input, and every input the multi loop declines (a segment "
-        "of more than --maxmums candidates: at the default 10,000, past "
-        "about 100 kbp a genome at six genomes), runs the per-level device "
-        "frontier.  --checkpoint runs the serial LIFO host engine.",
+        "decline.  Three or more (up to 8 contig paths): the multi-genome "
+        "device loop.  Every other input, and every input the multi loop "
+        "declines (a segment of more than --maxmums candidates: at the "
+        "default 10,000, past about 100 kbp a genome at six genomes), runs "
+        "the per-level device frontier.  --checkpoint runs the serial LIFO "
+        "host engine.",
     )
     p.add_argument("inputfiles", nargs="+", help="Fasta or gfa inputs.")
     _device_option(p, "the recursion")

@@ -37,18 +37,11 @@ from reveal_tpu_torch.core.io_gfa import seq2node as port_seq2node
 from reveal_tpu_torch.core.io_gfa import write_gfa as port_write_gfa
 from reveal_tpu_torch.hmm import refine as port_refine
 from reveal_tpu_torch.index import devfrontier, devloop_multi
+import torch_support  # noqa: F401  (the thread budget)
 
 REF_PROG = "python -m reveal_tpu.cli"
 PORT_PROG = "python -m reveal_tpu_torch.cli"
 _UUID = re.compile(r"(?<![0-9a-f])[0-9a-f]{32}(?![0-9a-f])")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _genomes(d, n, length, seed):

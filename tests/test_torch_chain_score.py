@@ -24,6 +24,7 @@ from reveal_tpu_torch.align.graphops import prune_nodes
 from reveal_tpu_torch.index import chain_score, devloop_multi
 from reveal_tpu_torch.index.devloop import NEG
 from test_devloop_multi import _genomes
+import torch_support  # noqa: F401  (the thread budget)
 
 
 def w32(x):

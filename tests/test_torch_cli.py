@@ -43,18 +43,11 @@ import reveal_tpu.cli as ref_cli
 from reveal_tpu.core.encoding import rc_str
 from reveal_tpu.core.io_fasta import fasta_writer
 from reveal_tpu_torch import cli as port_cli
+import torch_support  # noqa: F401  (the thread budget)
 
 # subcommands that take --device in the port
 DEVICE_CMDS = ("rem", "refine", "realign", "align", "matches", "plot",
                "chain", "transform", "finish")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _mutator(rng):

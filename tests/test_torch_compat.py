@@ -26,6 +26,7 @@ from test_ref_golden_probcons import (
     _load_msas,
     _load_posteriors,
 )
+import torch_support  # noqa: F401  (the thread budget)
 
 
 @pytest.fixture

@@ -39,8 +39,7 @@ from reveal_tpu_torch.hmm import mea_score as port_mea
 from reveal_tpu_torch.hmm import msa as port_msa
 from reveal_tpu_torch.hmm import pairhmm_dp as dp
 from reveal_tpu_torch.hmm import refine as port_refine
-
-torch.set_num_threads(2)
+from torch_support import refine_graphs
 
 CUT = port_msa.POSTERIOR_CUTOFF
 
@@ -359,17 +358,11 @@ def jax_no_native(monkeypatch):
     monkeypatch.setattr(jax_msa, "NATIVE_POST_MAX_CELLS", 0)
 
 
-def _graph_cases(tmp_path):
-    import test_torch_refine as tr
-
-    return tr._graphs(tmp_path)
-
-
 @pytest.mark.parametrize("name",
                          ["region", "no_bubble", "region_nproc", "chain"])
 def test_chain_route_refines_as_the_jax_chain(tmp_path, jax_no_native,
                                               name):
-    gfa, kw, want = _graph_cases(tmp_path)[name]
+    gfa, kw, want = refine_graphs(tmp_path)[name]
     kw = dict(kw, consgap=False)
     ref = _jax_chain_refined(str(gfa), str(tmp_path / "jax.gfa"), **kw)
     got = _port_refined(str(gfa), str(tmp_path / "port.gfa"),
@@ -394,7 +387,7 @@ def test_mixed_routes_refine_as_the_jax_chain(tmp_path, jax_no_native,
     """The cap lowered so that the 110 bp bubble (Lq 128) takes the
     two-phase route in both packages and the three 45 bp bubbles (Lq 64)
     the chain; consgap on (refine_all's default)."""
-    gfa, kw, want = _graph_cases(tmp_path)["chain"]
+    gfa, kw, want = refine_graphs(tmp_path)["chain"]
     cap = 36 * 64 * 64 * 4
     monkeypatch.setattr(jax_msa, "CHAIN_BYTES_CAP", cap)
     monkeypatch.setattr(port_msa, "CHAIN_BYTES_CAP", cap)
@@ -409,7 +402,7 @@ def test_mixed_routes_refine_as_the_jax_chain(tmp_path, jax_no_native,
 
 
 def test_two_phase_route_on_the_cpu_by_default(tmp_path):
-    gfa, kw, _ = _graph_cases(tmp_path)["region"]
+    gfa, kw, _ = refine_graphs(tmp_path)["region"]
     port_refine.refine_all(read_gfa(str(gfa)), device="cpu", **kw)
     st = port_refine.LAST_STATS
     assert st["route"] == "two-phase" and st["chain_bubbles"] == 0
@@ -432,6 +425,6 @@ def test_chain_on_cuda_without_a_card_raises(tmp_path, monkeypatch):
         port_msa.batch_stage12_device([_seqs(1, 3, 30)], device="cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         port_msa.batch_consistency([_problem(1, 3, 30)], device="cuda")
-    gfa, kw, _ = _graph_cases(tmp_path)["region"]
+    gfa, kw, _ = refine_graphs(tmp_path)["region"]
     with pytest.raises(RuntimeError, match="is_available"):
         port_refine.refine_all(read_gfa(str(gfa)), route="chain", **kw)

@@ -21,55 +21,13 @@ from reveal_tpu.core.textstore import TextStore
 from reveal_tpu.index.esa_index import ESAIndex
 from reveal_tpu.native import rem2_defer_native
 from reveal_tpu_torch.index import devloop
-
-torch.set_num_threads(2)
+from torch_support import devloop_case
 
 CPU = torch.device("cpu")
 STAT_KEYS = (
     "levels", "dispatches", "anchors", "abort", "forest", "slots",
     "trim_steps", "chain_steps", "repair_steps",
 )
-
-
-def _mutate(base, rng, nmut):
-    mut = list(base)
-    for _ in range(nmut):
-        i = int(rng.integers(0, len(mut)))
-        r = rng.random()
-        if r < 0.5:
-            mut[i] = "ACGT"[int(rng.integers(0, 4))]
-        elif r < 0.75:
-            del mut[i]
-        else:
-            mut.insert(i, "ACGT"[int(rng.integers(0, 4))])
-    return "".join(mut)
-
-
-def _case(name):
-    """(seqa, seqb, minlength) of the tests/test_devloop.py cases."""
-    if name.startswith("fuzz"):
-        seed, n, nmut = (int(v) for v in name.split("-")[1:])
-        rng = np.random.default_rng(seed)
-        base = "".join(rng.choice(list("ACGT"), size=n))
-        return base, _mutate(base, rng, nmut), 20
-    if name == "identical":
-        rng = np.random.default_rng(11)
-        s = "".join(rng.choice(list("ACGT"), size=800))
-        return s, s, 20
-    if name == "no_matches":
-        return "A" * 400, "C" * 400, 20
-    if name == "short_minlength":
-        rng = np.random.default_rng(13)
-        base = "".join(rng.choice(list("ACGT"), size=600))
-        return base, _mutate(base, rng, 12), 8
-    # repetitive-N: tandem repeats longer than the repair window force
-    # the deep whole-array resolve and the sequential repair branch
-    seed = int(name.split("-")[1])
-    rng = np.random.default_rng(seed)
-    unit = "".join(rng.choice(list("ACGT"), size=40))
-    base = (unit * 120) + "".join(rng.choice(list("ACGT"), size=1500))
-    base += unit * 10
-    return base, _mutate(base, rng, 60), 20
 
 
 def _defers(seqa, seqb, minlength):
@@ -97,7 +55,7 @@ def _defers(seqa, seqb, minlength):
     ],
 )
 def test_forest_matches_jax(name):
-    seqa, seqb, minl = _case(name)
+    seqa, seqb, minl = devloop_case(name)
     T, defers, nsep0 = _defers(seqa, seqb, minl)
     ref = jax_devloop.rem_device_forest(
         T.copy(), defers, nsep0, minl, 10000, 1, 1

@@ -9,8 +9,8 @@ count and the JAX loop's counters must be equal exactly.  ``chain_flat``
 is held against the host chain DP and ``largest`` pick, ``seg_max_scan``
 and ``pop_order`` against the JAX package's.  The routes: the forest's
 declines reach the single-root loop, the loop's declines the per-level
-frontier, and ``REVEAL_TPU_DEVLOOP_MODE=full`` runs the loop alone, as in
-``reveal_tpu``; no route reaches the serial host engine.
+frontier, as in ``reveal_tpu``; no route reaches the serial host
+engine.
 """
 
 import jax
@@ -26,24 +26,14 @@ from reveal_tpu.core.textstore import TextStore
 from reveal_tpu.index.esa_index import ESAIndex
 from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
+from reveal_tpu_torch.align.rem import node_state
 from reveal_tpu_torch.index import devfrontier, devloop
-from test_torch_devloop import _case
-from test_torch_frontier_routes import _jax_gfa, _port_gfa, node_state
-from test_torch_rem import _write_pair
+from torch_support import devloop_case, jax_gfa, write_population
 
 CPU = torch.device("cpu")
 # the JAX loop's LAST_STATS keys
 STAT_KEYS = ("levels", "dispatches", "anchors", "abort", "trim_steps",
              "chain_steps", "repair_steps")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _esa(seqa, seqb):
@@ -59,7 +49,7 @@ def _inputs(name):
     if name == "population-20000":
         pop = simulate_population(2, 20_000, seed=1)
         return pop[0][1], pop[1][1], 20
-    return _case(name)
+    return devloop_case(name)
 
 
 def _both(name, maxmums=10000):
@@ -249,49 +239,56 @@ def test_pop_order_matches_jax(seed):
 # ----------------------------------------------------------------------
 # the routes
 # ----------------------------------------------------------------------
+def _no_forest(monkeypatch):
+    """Both packages' host prefix and forest decline before they run (a
+    stand-in: no input property is known to make them decline), so the
+    single-root loop takes the pair."""
+    def declines(*_a, **_k):
+        devloop.LAST_STATS["fallback"] = "stood in"
+
+    monkeypatch.setattr(jax_rem, "_rem_device_hybrid", lambda *_a: None)
+    monkeypatch.setattr(port_rem, "_rem_device_hybrid", declines)
+
+
 def test_mode_full_matches_the_jax_route(tmp_path, monkeypatch):
-    """``REVEAL_TPU_DEVLOOP_MODE=full``: the single-root loop takes the
-    20 kbp pair whole, and the GFA is the JAX ``frontier=True`` route's
-    under the same switch (set around each call)."""
-    fastas = _write_pair(tmp_path, 20_000)
-    monkeypatch.setenv("REVEAL_TPU_DEVLOOP_MODE", "full")
+    """The host prefix and forest stood in to decline: the single-root
+    loop takes the 20 kbp pair whole, and the GFA is the JAX
+    ``frontier=True`` route's with the same stand-in (the name is from
+    when an environment switch skipped the forest)."""
+    fastas = write_population(tmp_path, 2, 20_000, 1)
+    _no_forest(monkeypatch)
     G, idx = jax_rem.align_genomes(fastas, backend="auto", frontier=True)
-    monkeypatch.delenv("REVEAL_TPU_DEVLOOP_MODE")
-    want = _jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
-    monkeypatch.setenv("REVEAL_TPU_DEVLOOP_MODE", "full")
+    want = jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
     G, idx = port_rem.align_genomes(fastas, device="cpu")
-    monkeypatch.delenv("REVEAL_TPU_DEVLOOP_MODE")
     st = dict(devloop.LAST_STATS)
-    assert st["abort"] == 0 and st["fallback"] is None
+    assert st["abort"] == 0 and st["fallback"] == "forest: stood in"
     assert "forest" not in st and st["levels"] == 15
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
 def test_loop_abort_takes_the_frontier(tmp_path, monkeypatch):
-    """``REVEAL_TPU_DEVLOOP_MODE=full`` with ``--maxmums 50``: the 176
+    """The forest stood in to decline, with ``--maxmums 50``: the 176
     root candidates abort the loop (ABORT_MAXMUMS) and the per-level
-    frontier takes the pair: the GFA of the JAX route under the same
-    switch, the node state and text of the JAX host engine at maxmums
+    frontier takes the pair: the GFA of the JAX route with the same
+    stand-in, the node state and text of the JAX host engine at maxmums
     50, the serial host engine never called."""
-    fastas = _write_pair(tmp_path, 20_000)
+    fastas = write_population(tmp_path, 2, 20_000, 1)
     G, idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=50)
     host_state, host_T = node_state(G), idx.main.T.copy()
-    monkeypatch.setenv("REVEAL_TPU_DEVLOOP_MODE", "full")
+    _no_forest(monkeypatch)
     G, idx = jax_rem.align_genomes(fastas, backend="auto", frontier=True,
                                    maxmums=50)
-    monkeypatch.delenv("REVEAL_TPU_DEVLOOP_MODE")
-    want = _jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
     monkeypatch.setattr(port_rem, "_align_loop", _refused)
-    monkeypatch.setenv("REVEAL_TPU_DEVLOOP_MODE", "full")
     G, idx = port_rem.align_genomes(fastas, device="cpu", maxmums=50)
-    monkeypatch.delenv("REVEAL_TPU_DEVLOOP_MODE")
-    why = "single-root loop: kernel abort code 7 (ABORT_MAXMUMS)"
+    why = ("forest: stood in; single-root loop: kernel abort code 7 "
+           "(ABORT_MAXMUMS)")
     assert devloop.LAST_STATS["fallback"] == why
     assert devfrontier.LAST_STATS["fallback"] == why
     assert devfrontier.LAST_STATS["levels"] > 1
     assert node_state(G) == host_state
     np.testing.assert_array_equal(idx.main.T, host_T)
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
 def _refused(*_a, **_k):
@@ -302,9 +299,9 @@ def test_forest_decline_takes_the_single_root_loop(tmp_path, monkeypatch):
     """A forest abort (ABORT_DUP_REF, stood in) sends the pair to the
     single-root loop on the same device: the host engine's GFA, the
     forest's abort named in ``LAST_STATS["fallback"]``."""
-    fastas = _write_pair(tmp_path, 20_000, seed=5)
+    fastas = write_population(tmp_path, 2, 20_000, 5)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
 
     def aborts(*_a, **_k):
         devloop.LAST_STATS.clear()
@@ -317,4 +314,4 @@ def test_forest_decline_takes_the_single_root_loop(tmp_path, monkeypatch):
     st = dict(devloop.LAST_STATS)
     assert st["fallback"] == "forest: kernel abort code 4 (ABORT_DUP_REF)"
     assert st["abort"] == 0 and st["levels"] > 1 and "loop_seconds" in st
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want

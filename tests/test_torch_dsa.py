@@ -24,6 +24,7 @@ from reveal_tpu_torch.index import suffix
 from reveal_tpu_torch.parallel import dsa
 from reveal_tpu_torch.parallel.distributed import World
 from reveal_tpu_torch.parallel.mesh import make_mesh
+import torch_support  # noqa: F401  (the thread budget)
 
 WORLD = 8
 

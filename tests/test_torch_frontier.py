@@ -14,70 +14,11 @@ import pytest
 import torch
 
 import reveal_tpu.index.devfrontier as jax_df
-from reveal_tpu.core.io_fasta import fasta_writer
 from reveal_tpu_torch.align import rem as port_rem
 from reveal_tpu_torch.index import devfrontier
+from torch_support import four_genomes, multicontig_pair, repetitive_pair
 
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
-def _mutate(rng, seq, count, indels=True):
-    mut = list(seq)
-    for _ in range(count):
-        i = int(rng.integers(0, len(mut)))
-        if not indels or rng.random() < 0.5:
-            mut[i] = "ACGT"[int(rng.integers(0, 4))]
-        else:
-            del mut[i]
-    return "".join(mut)
-
-
-def _random(rng, n):
-    return "".join(rng.choice(list("ACGT"), size=n))
-
-
-def multicontig_pair(tmp_path):
-    """tests/test_frontier.py's multi-contig pair."""
-    rng = np.random.default_rng(9)
-    c1 = _random(rng, 1500)
-    c2 = _random(rng, 1200)
-    m1 = _mutate(rng, c1, 15, indels=False)
-    fa = [str(tmp_path / "m1.fa"), str(tmp_path / "m2.fa")]
-    fasta_writer(fa[0], [("x1", c1), ("x2", c2)])
-    fasta_writer(fa[1], [("y1", m1), ("y2", c2)])
-    return fa
-
-
-def repetitive_pair(tmp_path):
-    """tests/test_frontier.py's repetitive pair (boundary repairs)."""
-    rng = np.random.default_rng(23)
-    unit = _random(rng, 120)
-    base = unit * 12 + _random(rng, 2000)
-    fa = [str(tmp_path / "r1.fa"), str(tmp_path / "r2.fa")]
-    fasta_writer(fa[0], [("a", base)])
-    fasta_writer(fa[1], [("b", _mutate(rng, base, 20, indels=False))])
-    return fa
-
-
-def four_genomes(tmp_path):
-    """tests/test_frontier.py's four-genome input."""
-    rng = np.random.default_rng(17)
-    base = _random(rng, 3000)
-    fa = []
-    for k in range(4):
-        fn = str(tmp_path / ("g%d.fa" % k))
-        fasta_writer(fn, [("g%d" % k, _mutate(rng, base, 25))])
-        fa.append(fn)
-    return fa
 
 
 def _frontier(fastas, **cfg):

@@ -12,64 +12,20 @@ JAX package's ``DeviceFrontier`` numbers the nodes in its own level
 order, so it is no oracle for the bytes.)
 """
 
-import importlib.util
-import pathlib
-
 import numpy as np
 import pytest
 import torch
 
 import reveal_tpu.align.rem as jax_rem
-from reveal_tpu.align.graphops import prune_nodes as jax_prune
 from reveal_tpu.core.io_fasta import fasta_writer
-from reveal_tpu.core.io_gfa import seq2node as jax_seq2node
-from reveal_tpu.core.io_gfa import write_gfa as jax_write_gfa
-from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
-from reveal_tpu_torch.align.graphops import prune_nodes as port_prune
-from reveal_tpu_torch.core.io_gfa import seq2node as port_seq2node
-from reveal_tpu_torch.core.io_gfa import write_gfa as port_write_gfa
+from reveal_tpu_torch.align.rem import node_state
 from reveal_tpu_torch.index import devfrontier, devloop, devloop_multi
-from test_torch_frontier import (four_genomes, multicontig_pair,
-                                 repetitive_pair)
+from torch_support import (four_genomes, jax_gfa, multicontig_pair,
+                           repetitive_pair, write_bubble_chain,
+                           write_population)
 
 CPU = torch.device("cpu")
-REPO = pathlib.Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
-
-
-def node_state(G):
-    """tests/test_frontier.py's ``_node_state``."""
-    return sorted(
-        (n, tuple(sorted(G.nodes[n]["offsets"].items())),
-         G.nodes[n].get("aligned", 0))
-        for n in G.nodes if isinstance(n, tuple))
-
-
-def _gfa(G, idx, fn, prune, s2n, wg):
-    """The GFA as the CLI writes it (pruned past two paths)."""
-    if len(G.graph["paths"]) > 2:
-        prune(G, T=idx.main.T)
-    s2n(G, idx.main.T)
-    wg(G, idx.main.T, outputfile=fn)
-    with open(fn, "rb") as fh:
-        return fh.read()
-
-
-def _jax_gfa(G, idx, fn):
-    return _gfa(G, idx, fn, jax_prune, jax_seq2node, jax_write_gfa)
-
-
-def _port_gfa(G, idx, fn):
-    return _gfa(G, idx, fn, port_prune, port_seq2node, port_write_gfa)
 
 
 def _forced(files, multi=False, **cfg):
@@ -88,14 +44,14 @@ def hold(files, tmp_path, multi=False, **cfg):
     G, idx = jax_rem.align_genomes(files, backend="auto", multi=multi,
                                    **cfg)
     host_state, host_T = node_state(G), idx.main.T.copy()
-    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
 
     devfrontier.LAST_STATS.clear()
     G, idx = port_rem.align_genomes(files, device="cpu", multi=multi, **cfg)
     stats = dict(devfrontier.LAST_STATS)
     assert node_state(G) == host_state
     np.testing.assert_array_equal(idx.main.T, host_T)
-    port = _port_gfa(G, idx, str(tmp_path / "port.gfa"))
+    port = port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa"))
     if stats:
         assert stats["levels"] > 1
         assert stats["order_seconds"] > 0
@@ -103,7 +59,7 @@ def hold(files, tmp_path, multi=False, **cfg):
 
     G, idx = _forced(files, multi, **cfg)
     np.testing.assert_array_equal(idx.main.T, host_T)
-    assert _port_gfa(G, idx, str(tmp_path / "forced.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "forced.gfa")) == want
     return stats
 
 
@@ -126,24 +82,12 @@ def test_frontier_pair(tmp_path):
     assert not hold(fa, tmp_path)
 
 
-def _population(tmp_path, n, length, seed, split=None):
-    fastas = []
-    for i, (name, seq, _ids) in enumerate(
-            simulate_population(n, length, seed=seed)):
-        fn = str(tmp_path / (name + ".fa"))
-        half = len(seq) // 2
-        fasta_writer(fn, [(name, seq)] if i != split else
-                     [(name + "_1", seq[:half]), (name + "_2", seq[half:])])
-        fastas.append(fn)
-    return fastas
-
-
 def six_genomes(tmp_path):
     """Six genomes of 6 kbp: at ``maxmums=30`` the root holds more
     candidates than that, as the six-genome panel's root does past about
     100 kbp at the default 10,000, and the frontier's level order differs
     from the serial pop order."""
-    return _population(tmp_path, 6, 6_000, 4)
+    return write_population(tmp_path, 6, 6_000, 4)
 
 
 @pytest.mark.parametrize("make,cfg,route", [
@@ -168,7 +112,7 @@ def test_frontier_inputs(make, cfg, route, tmp_path):
 def test_nine_paths(tmp_path):
     """Eight genomes, one of two contigs: nine paths, past the multi
     loop's eight, take the frontier."""
-    fastas = _population(tmp_path, 8, 3000, 10, split=3)
+    fastas = write_population(tmp_path, 8, 3000, 10, split=3)
     assert "not eligible" in hold(fastas, tmp_path)["fallback"]
 
 
@@ -177,7 +121,7 @@ def test_nine_paths(tmp_path):
 ], ids=["seedsize40", "gcmodel-star-avg", "maxsize200"])
 def test_picking_options_take_the_frontier(cfg, tmp_path):
     """Seeding, a gap-cost model and a size gate: not forest inputs."""
-    stats = hold(_population(tmp_path, 2, 20_000, 5), tmp_path, **cfg)
+    stats = hold(write_population(tmp_path, 2, 20_000, 5), tmp_path, **cfg)
     assert stats and stats["fallback"] is None
 
 
@@ -186,7 +130,7 @@ def test_notrim_is_honoured(tmp_path):
     untrimmed result: the JAX host engine's node state and GFA with
     ``trim=False``.  (The JAX ``frontier=True`` route gives the trimmed
     result there: its single-root loop always trims.)"""
-    fastas = _population(tmp_path, 2, 20_000, 5)
+    fastas = write_population(tmp_path, 2, 20_000, 5)
     assert hold(fastas, tmp_path, trim=False)
     G, _idx = jax_rem.align_genomes(fastas, backend="auto")
     trimmed = node_state(G)
@@ -199,13 +143,9 @@ def test_gfa_and_fasta_inputs(tmp_path, multi):
     """A three-path bubble chain as ``.gfa`` beside a fasta of one of its
     paths, mutated: graph inputs take the frontier, in either graph mode
     (``--multi``: the parallel-edge graph)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     gfa = str(tmp_path / "chain.gfa")
-    want = smoke.write_bubble_chain(gfa, seed=4, n_small=3, small=80,
-                                    n_big=1, big=150, npaths=3)
+    want = write_bubble_chain(gfa, seed=4, n_small=3, small=80,
+                              n_big=1, big=150, npaths=3)
     rng = np.random.default_rng(3)
     seq = list(want[sorted(want)[0]])
     for _ in range(5):
@@ -223,7 +163,7 @@ def test_forest_declines_keep_their_route(tmp_path, monkeypatch):
     serial host engine.  The card is stood in for: the forest and the
     loop decline before any tensor moves, and the frontier, which checks
     the device it was given, runs on the CPU."""
-    fastas = _population(tmp_path, 2, 20_000, 5)
+    fastas = write_population(tmp_path, 2, 20_000, 5)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
     want_state, want_T = node_state(G), idx.main.T.copy()
     monkeypatch.setattr(port_rem, "resolve_device",

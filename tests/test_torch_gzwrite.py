@@ -14,6 +14,7 @@ from reveal_tpu_torch.core import gzwrite, trace
 from reveal_tpu_torch.core.gzwrite import CHUNK, GzipTextWriter
 from reveal_tpu_torch.core.io_gfa import read_gfa, write_gfa
 from reveal_tpu_torch.utils.simulate import simulate_population
+import torch_support  # noqa: F401  (the thread budget)
 
 
 def _write(fn, text, step=1_000, **kw):

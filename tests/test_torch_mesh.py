@@ -12,9 +12,6 @@ scenario of ``tests/test_distributed.py::test_two_host_mesh`` runs as two
 processes that join a gloo world through ``init_distributed``.
 """
 
-import os
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
@@ -28,8 +25,7 @@ from reveal_tpu_torch.index.suffix import lcp_from_sa_np, suffix_array_np
 from reveal_tpu_torch.parallel import dsa
 from reveal_tpu_torch.parallel.distributed import World
 from reveal_tpu_torch.parallel.mesh import make_mesh, run_pipeline_step
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_support import run_ranks
 
 # the summed log-probability of 8 pairs of 24 x 28 bases (about -94 a
 # pair): both steps sum float32 totals, each the end of a float32
@@ -170,7 +166,6 @@ def test_make_mesh_sizes(world):
 WORKER = textwrap.dedent(
     """
     import sys
-    sys.path.insert(0, %(root)r)
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -226,23 +221,9 @@ def test_two_process_world(tmp_path):
     ``file://`` address): an all-reduce and an all_gather, then each
     rank's ``dsa_shard`` SA and LCP shards against the oracle's slices
     for LCP strides None, 2 and 4 (4 twice)."""
-    script = WORKER % {"root": REPO,
-                       "address": "file://%s" % (tmp_path / "store")}
     fn = tmp_path / "worker.py"
-    fn.write_text(script)
-    procs = [subprocess.Popen([sys.executable, str(fn), str(i)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=150)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, "process %d failed:\n%s" % (i, out)
-        assert "OK process %d" % i in out
+    fn.write_text(WORKER % {"address": "file://%s" % (tmp_path / "store")})
+    for i, p in enumerate(run_ranks(fn, 2, timeout=150)):
+        assert p.returncode == 0, "process %d failed:\n%s" % (
+            i, p.stdout + p.stderr)
+        assert "OK process %d" % i in p.stdout

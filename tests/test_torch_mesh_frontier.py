@@ -41,6 +41,7 @@ from reveal_tpu_torch.core.io_fasta import fasta_writer
 from reveal_tpu_torch.index import devfrontier
 from reveal_tpu_torch.parallel import dryrun
 from reveal_tpu_torch.parallel.distributed import World
+import torch_support  # noqa: F401  (the thread budget)
 
 CPU = torch.device("cpu")
 WORLD = 8
@@ -197,7 +198,6 @@ def replay_on_mesh(P, root, calls):
     layout after it, and the frontier's stats."""
     from reveal_tpu_torch.parallel.mesh import make_mesh
 
-    torch.set_num_threads(1)
     mesh = make_mesh(P, "cpu")
     if mesh is None:
         return None
@@ -350,7 +350,6 @@ def seqs_on_mesh(aobjs, cfg):
     rank: (node state, text)."""
     from reveal_tpu_torch.parallel.mesh import make_mesh
 
-    torch.set_num_threads(1)
     G, idx = port_rem.align_seqs(aobjs, mesh=make_mesh(device="cpu"), **cfg)
     return port_rem.node_state(G), idx.main.T
 

@@ -25,6 +25,7 @@ from reveal_tpu_torch.core.textstore import TextStore
 from reveal_tpu_torch.index import devfrontier
 from reveal_tpu_torch.index.suffix import build_esa
 from reveal_tpu_torch.parallel.distributed import World
+import torch_support  # noqa: F401  (the thread budget)
 
 P = 8
 NPAD = 1 << 18
@@ -92,7 +93,6 @@ def stage_peaks(case):
     """This rank's peaks of the three mesh stages."""
     from reveal_tpu_torch.parallel.mesh import make_mesh
 
-    torch.set_num_threads(1)
     mesh = make_mesh(device="cpu")
     f = devfrontier.DeviceFrontier(*case["root"], None, mesh=mesh,
                                    nsep=case["nsep"])

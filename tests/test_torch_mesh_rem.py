@@ -18,10 +18,8 @@ that contradicts the mesh's raises.
 """
 
 import hashlib
-import os
-import subprocess
-import sys
 import textwrap
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -33,25 +31,9 @@ from reveal_tpu_torch.index import devfrontier
 from reveal_tpu_torch.parallel import dryrun
 from reveal_tpu_torch.parallel.distributed import World
 from reveal_tpu_torch.parallel.mesh import make_mesh
+from torch_support import mutate, run_port, run_ranks
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-
-
-def _mutate(rng, seq, count):
-    """``tests/test_distributed.py``'s mutation: half substitutions, a
-    quarter deletions, a quarter insertions."""
-    mut = list(seq)
-    for _ in range(count):
-        i = int(rng.integers(0, len(mut)))
-        r = rng.random()
-        if r < 0.5:
-            mut[i] = "ACGT"[int(rng.integers(0, 4))]
-        elif r < 0.75:
-            del mut[i]
-        else:
-            mut.insert(i, "ACGT"[int(rng.integers(0, 4))])
-    return "".join(mut)
 
 
 def pair_3(d):
@@ -59,7 +41,7 @@ def pair_3(d):
     base = "".join(rng.choice(list("ACGT"), size=60_000))
     fas = [str(d / "a.fa"), str(d / "b.fa")]
     fasta_writer(fas[0], [("a", base)])
-    fasta_writer(fas[1], [("b", _mutate(rng, base, 300))])
+    fasta_writer(fas[1], [("b", mutate(rng, base, 300))])
     return fas
 
 
@@ -69,7 +51,7 @@ def three_9(d):
     fas = []
     for s in range(3):
         fa = str(d / ("m%d.fa" % s))
-        fasta_writer(fa, [("m%d" % s, _mutate(rng, base, 150))])
+        fasta_writer(fa, [("m%d" % s, mutate(rng, base, 150))])
         fas.append(fa)
     return fas
 
@@ -81,24 +63,14 @@ def state_hash(state):
     return hashlib.sha256(repr(norm).encode()).hexdigest()
 
 
-def _jax_state(G):
-    return sorted(
-        (n, tuple(sorted(G.nodes[n]["offsets"].items())),
-         G.nodes[n].get("aligned", 0))
-        for n in G.nodes if isinstance(n, tuple))
-
-
 WORKER = textwrap.dedent(
     """
     import hashlib, sys
-    sys.path.insert(0, %(root)r)
-    import torch
     from reveal_tpu_torch.align.rem import align_genomes, node_state
     from reveal_tpu_torch.parallel.distributed import (global_mesh,
                                                        init_distributed)
 
     me = int(sys.argv[1])
-    torch.set_num_threads(1)
     init_distributed(%(address)r, 2, me, device="cpu")
     G, idx = align_genomes(%(fastas)r, mesh=global_mesh("cpu"))
     norm = [(tuple(int(x) for x in n),
@@ -111,32 +83,25 @@ WORKER = textwrap.dedent(
 )
 
 
-def _two_processes(tmp_path, fastas):
-    """The node-state and text hashes both ranks printed."""
-    script = WORKER % {"root": REPO, "fastas": fastas,
-                       "address": "file://%s" % (tmp_path / "store")}
+def _two_processes(tmp_path, fastas, beside):
+    """The node-state and text hashes both ranks printed, and what
+    ``beside()`` returned: it runs in this process while the ranks run."""
     fn = tmp_path / "worker.py"
-    fn.write_text(script)
-    procs = [subprocess.Popen([sys.executable, str(fn), str(i)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for i in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    fn.write_text(WORKER % {"fastas": fastas,
+                            "address": "file://%s" % (tmp_path / "store")})
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(run_ranks, fn, 2, timeout=300)
+        here = beside()
+        procs = ranks.result()
     got = []
-    for i, (p, out) in enumerate(zip(procs, outs)):
+    for i, p in enumerate(procs):
+        out = p.stdout + p.stderr
         assert p.returncode == 0, "process %d failed:\n%s" % (i, out)
-        line = [ln for ln in out.splitlines() if ln.startswith("OK process")]
+        line = [ln for ln in p.stdout.splitlines()
+                if ln.startswith("OK process")]
         assert len(line) == 1 and line[0].split()[2] == str(i), out
         got.append(tuple(line[0].split()[3:]))
-    return got
+    return got, here
 
 
 def _single_process(fastas):
@@ -154,11 +119,14 @@ def test_two_process_full_rem(tmp_path):
     from reveal_tpu.align.rem import align_genomes as jax_align
 
     fas = pair_3(tmp_path)
-    got = _two_processes(tmp_path, fas)
-    want = _single_process(fas)
+
+    def references():
+        Gh, _ = jax_align(fas, backend="np")
+        return _single_process(fas), state_hash(port_rem.node_state(Gh))
+
+    got, (want, jax_state) = _two_processes(tmp_path, fas, references)
     assert got[0] == got[1] == want
-    Gh, _ = jax_align(fas, backend="np")
-    assert state_hash(_jax_state(Gh)) == want[0]
+    assert jax_state == want[0]
 
 
 def test_two_process_multi_rem(tmp_path):
@@ -166,18 +134,19 @@ def test_two_process_multi_rem(tmp_path):
     from reveal_tpu.parallel.mesh import make_mesh as jax_make_mesh
 
     fas = three_9(tmp_path)
-    got = _two_processes(tmp_path, fas)
-    want = _single_process(fas)
+
+    def references():
+        Gm, _ = jax_align(fas, backend="np", mesh=jax_make_mesh(8))
+        return _single_process(fas), state_hash(port_rem.node_state(Gm))
+
+    got, (want, jax_state) = _two_processes(tmp_path, fas, references)
     assert got[0] == got[1] == want
-    Gm, _ = jax_align(fas, backend="np", mesh=jax_make_mesh(8))
-    assert state_hash(_jax_state(Gm)) == want[0]
+    assert jax_state == want[0]
 
 
 def test_dryrun_in_a_world_of_4():
-    out = subprocess.run(
-        [sys.executable, "-m", "reveal_tpu_torch.parallel.dryrun",
-         "--ranks", "4", "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+    out = run_port(["-m", "reveal_tpu_torch.parallel.dryrun", "--ranks", "4",
+                    "--device", "cpu"], timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("rank ")]
     assert len(lines) == 4
@@ -190,10 +159,8 @@ def test_dryrun_in_a_world_of_4():
 
 def test_dryrun_needs_a_card_unless_the_cpu_is_named(tmp_path,
                                                       monkeypatch):
-    out = subprocess.run(
-        [sys.executable, "-m", "reveal_tpu_torch.parallel.dryrun"],
-        cwd=REPO, capture_output=True, text=True, timeout=120,
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    out = run_port(["-m", "reveal_tpu_torch.parallel.dryrun"], timeout=120)
     assert out.returncode != 0 and "is_available" in out.stderr
     assert "dryrun_multichip ok" not in out.stdout
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

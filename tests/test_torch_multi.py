@@ -18,53 +18,22 @@ import torch
 
 import reveal_tpu.align.rem as jax_rem
 from reveal_tpu.align.graphops import IntervalIndex as JaxIntervalIndex
-from reveal_tpu.align.graphops import prune_nodes as jax_prune
 from reveal_tpu.align.picker import MumPicker, PickerConfig
-from reveal_tpu.core.io_fasta import fasta_writer
-from reveal_tpu.core.io_gfa import seq2node as jax_seq2node
-from reveal_tpu.core.io_gfa import write_gfa as jax_write_gfa
 from reveal_tpu.core.textstore import TextStore as JaxTextStore
 from reveal_tpu.graph.pangraph import PanGraph as JaxPanGraph
 from reveal_tpu.index.esa_index import ESAIndex as JaxESAIndex
 from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
-from reveal_tpu_torch.align.graphops import prune_nodes as port_prune
-from reveal_tpu_torch.core.io_gfa import seq2node as port_seq2node
-from reveal_tpu_torch.core.io_gfa import write_gfa as port_write_gfa
 from reveal_tpu_torch.core.textstore import TextStore
 from reveal_tpu_torch.index import devloop, devloop_multi
 from reveal_tpu_torch.index import window_resolve as wr
 from reveal_tpu_torch.index.esa_index import ESAIndex
 from test_devloop_multi import _genomes
+from torch_support import jax_gfa, write_population
 
 CPU = torch.device("cpu")
 GENOME_CASES = [(3, 2000, 3, 4), (13, 1000, 6, 5), (19, 1200, 6, 12),
                 (37, 2200, 7, 7)]
-
-
-def _bytes(G, idx, fn, prune, s2n, wg):
-    prune(G, T=idx.main.T)
-    s2n(G, idx.main.T)
-    wg(G, None, outputfile=fn)
-    with open(fn, "rb") as fh:
-        return fh.read()
-
-
-def _jax_gfa(G, idx, fn):
-    return _bytes(G, idx, fn, jax_prune, jax_seq2node, jax_write_gfa)
-
-
-def _port_gfa(G, idx, fn):
-    return _bytes(G, idx, fn, port_prune, port_seq2node, port_write_gfa)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture
@@ -100,23 +69,11 @@ def test_align_seqs_matches_the_jax_host_engine(gen, tmp_path,
     writes the JAX package's host-engine GFA byte for byte."""
     aobjs = _genomes(*gen) if len(gen) == 4 else _population(*gen)
     G, idx = jax_rem.align_seqs(aobjs, minlength=20, frontier=False)
-    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
     G, idx = port_rem.align_seqs(aobjs, minlength=20, device="cpu")
     _assert_engaged()
     assert devloop_multi.LAST_STATS["paths"] == len(aobjs)
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
-
-
-def _write_fastas(tmp_path, n, length, seed, split):
-    pop = simulate_population(n, length, seed=seed)
-    fastas = []
-    for i, (name, seq, _ids) in enumerate(pop):
-        fn = str(tmp_path / (name + ".fa"))
-        half = len(seq) // 2
-        fasta_writer(fn, [(name, seq)] if i != split else
-                     [(name + "_1", seq[:half]), (name + "_2", seq[half:])])
-        fastas.append(fn)
-    return fastas
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
 @pytest.mark.parametrize("n,length,seed,split",
@@ -125,13 +82,13 @@ def test_two_contig_sample_matches_the_jax_host_engine(
         tmp_path, no_host_engine, n, length, seed, split):
     """One sample of two contigs: paths are not samples (sample_of_path
     is not the identity), through ``align_genomes``."""
-    fastas = _write_fastas(tmp_path, n, length, seed, split)
+    fastas = write_population(tmp_path, n, length, seed, split)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
     G, idx = port_rem.align_genomes(fastas, device="cpu")
     _assert_engaged()
     assert devloop_multi.LAST_STATS["paths"] == n + 1
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
 # ----------------------------------------------------------------------
@@ -361,7 +318,7 @@ def test_decline_raises_on_cuda(tmp_path, stood_in_card, no_host_engine):
     node state, the decline recorded in both LAST_STATS and the host
     engine never called (the name is from when such inputs raised).  The
     card is stood in for: the loop and the frontier run on the CPU."""
-    fastas = _write_fastas(tmp_path, 4, 4000, 9, None)
+    fastas = write_population(tmp_path, 4, 4000, 9, None)
     G, _idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30)
     want = _node_state(G)
     G, _idx = port_rem.align_genomes(fastas, device="cuda", maxmums=30)
@@ -385,7 +342,7 @@ def test_align_seqs_on_cuda_never_runs_the_host_engine(
     G, idx = jax_rem.align_seqs(aobjs, minlength=20, maxmums=maxmums,
                                 frontier=False)
     want_state = _node_state(G)
-    want = _jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
     stood_in_card.LAST_STATS.clear()
     G, idx = port_rem.align_seqs(aobjs, minlength=20, maxmums=maxmums,
                                  device="cuda")
@@ -395,7 +352,7 @@ def test_align_seqs_on_cuda_never_runs_the_host_engine(
         return
     _assert_engaged()
     assert not stood_in_card.LAST_STATS
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
 def test_decline_finishes_on_the_host_engine_on_the_cpu(tmp_path,
@@ -406,20 +363,20 @@ def test_decline_finishes_on_the_host_engine_on_the_cpu(tmp_path,
     the code recorded."""
     from reveal_tpu_torch.index import devfrontier
 
-    fastas = _write_fastas(tmp_path, 4, 4000, 9, None)
+    fastas = write_population(tmp_path, 4, 4000, 9, None)
     G, _idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30)
     want_state = _node_state(G)
     monkeypatch.setenv("REVEAL_TPU_DISABLE_DEVLOOP", "1")
     G, idx = jax_rem.align_genomes(fastas, backend="auto", maxmums=30,
                                    frontier=True)
-    want = _jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
     G, idx = port_rem.align_genomes(fastas, device="cpu", maxmums=30)
     st = devloop_multi.LAST_STATS
     assert st["abort"] == devloop.ABORT_MAXMUMS
     assert st["fallback"] == "kernel abort code 7 (ABORT_MAXMUMS)"
     assert devfrontier.LAST_STATS["fallback"] == st["fallback"]
     assert _node_state(G) == want_state
-    assert _port_gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
 
 
 def test_more_than_eight_paths_is_declined(tmp_path, stood_in_card,
@@ -428,7 +385,7 @@ def test_more_than_eight_paths_is_declined(tmp_path, stood_in_card,
     declines before any tensor moves and the input takes the frontier
     on the card, with the JAX package's host-engine node state.  The
     card is stood in for: the frontier runs on the CPU."""
-    fastas = _write_fastas(tmp_path, 8, 1500, 10, 3)
+    fastas = write_population(tmp_path, 8, 1500, 10, 3)
     G, _idx = jax_rem.align_genomes(fastas, backend="auto")
     want = _node_state(G)
     G, _idx = port_rem.align_genomes(fastas, device="cuda")

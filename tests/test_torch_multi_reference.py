@@ -18,7 +18,6 @@ import types
 
 import numpy as np
 import pytest
-import torch
 
 import reveal_tpu.index.devloop as jax_devloop
 from reveal_tpu.core.io_fasta import fasta_writer
@@ -26,6 +25,7 @@ from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
 from reveal_tpu_torch.index import devloop_multi
 from test_devloop_multi import _genomes
+import torch_support  # noqa: F401  (the thread budget)
 
 # where the multi kernel has classified the slots of a level, and the
 # line the pairwise kernel defines segstart with
@@ -46,15 +46,6 @@ def jax_multi():
     exec(compile(src.replace(_AFTER, _AFTER + _SEGSTART),
                  jax_devloop.__file__, "exec"), mod.__dict__)
     return mod
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _fastas(tmp_path, case):

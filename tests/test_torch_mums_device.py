@@ -22,8 +22,7 @@ from reveal_tpu_torch.core.textstore import TextStore
 from reveal_tpu_torch.index import frontier
 from reveal_tpu_torch.index.mums import pairwise_mums, pairwise_mums_device
 from reveal_tpu_torch.index.suffix import build_esa
-
-torch.set_num_threads(2)
+import torch_support  # noqa: F401  (the thread budget)
 
 
 def _pair_text(seed, n, nsubs, lower=False):

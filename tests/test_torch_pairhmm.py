@@ -21,8 +21,7 @@ import reveal_tpu.hmm.pallas_pairhmm as jax_pallas
 from reveal_tpu_torch.hmm import msa as port_msa
 from reveal_tpu_torch.hmm import pairhmm as port_pairhmm
 from reveal_tpu_torch.hmm import pairhmm_dp as dp
-
-torch.set_num_threads(2)
+import torch_support  # noqa: F401  (the thread budget)
 
 
 def _seq(rng, n, alphabet="ACGT"):

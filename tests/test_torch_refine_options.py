@@ -11,9 +11,7 @@ run.
 """
 
 import os
-import pathlib
 import stat
-import subprocess
 import sys
 
 import pytest
@@ -24,35 +22,24 @@ from reveal_tpu_torch import cli as port_cli
 from reveal_tpu_torch.hmm import msa as port_msa
 from reveal_tpu_torch.hmm import refine as port_refine
 from reveal_tpu_torch.hmm.selfcheck import check_posterior_oracle
-from test_torch_refine import _cli_args, _jax_refined, _smoke_module
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
+from torch_support import cli_args, jax_refined, run_port, write_bubble_chain
 
 
 def _bubbles(tmp_path, small, seed=3):
     """Three bubbles of three paths, alleles near ``small`` bp."""
     gfa = str(tmp_path / ("bubbles%d.gfa" % small))
-    want = _smoke_module().write_bubble_chain(
+    want = write_bubble_chain(
         gfa, seed=seed, n_small=3, small=small, n_big=0, npaths=3, flank=20)
     return gfa, want
 
 
 def _both(tmp_path, gfa, kw):
     """(the JAX package's refined GFA, the port CLI's) with ``kw``."""
-    ref = _jax_refined(gfa, str(tmp_path / "jax.gfa"), **dict(kw,
-                                                               consgap=False))
+    ref = jax_refined(gfa, str(tmp_path / "jax.gfa"),
+                      **dict(kw, consgap=False))
     out = str(tmp_path / "port.gfa")
     port_cli.main(["refine", gfa, "--all", "--device", "cpu", "-o", out,
-                   *_cli_args(kw)])
+                   *cli_args(kw)])
     with open(out, "rb") as fh:
         return ref, fh.read()
 
@@ -69,8 +56,8 @@ def test_logadd_compat_matches_jax(tmp_path, monkeypatch):
     gfa, _want = _bubbles(tmp_path, 25)
     jax_msa.set_logadd_compat(True)
     try:
-        ref = _jax_refined(gfa, str(tmp_path / "jax.gfa"), minsize=2,
-                           nrefinements=5, consgap=False)
+        ref = jax_refined(gfa, str(tmp_path / "jax.gfa"), minsize=2,
+                          nrefinements=5, consgap=False)
         out = str(tmp_path / "port.gfa")
         port_cli.main(["refine", gfa, "--all", "--device", "cpu", "-o", out,
                        "--minsize", "2", "--nrefinements", "5",
@@ -216,12 +203,8 @@ def test_nproc_matches_the_serial_run(tmp_path):
     port_cli.main(args + ["-o", serial])
     assert port_refine.LAST_STATS["pool_processes"] == 0
     pooled = str(tmp_path / "pooled.gfa")
-    env = dict(os.environ, PYTHONPATH=str(REPO) + (
-        os.pathsep + os.environ["PYTHONPATH"]
-        if os.environ.get("PYTHONPATH") else ""))
-    proc = subprocess.run(
-        [sys.executable, "-c", _CLI_POOL, *args, "-o", pooled, "--nproc",
-         "2"], capture_output=True, text=True, env=env, timeout=300)
+    proc = run_port(["-c", _CLI_POOL, *args, "-o", pooled, "--nproc", "2"],
+                    timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "pool_processes 2" in proc.stdout
     with open(serial, "rb") as a, open(pooled, "rb") as b:

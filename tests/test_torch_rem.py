@@ -8,10 +8,6 @@ host engine.
 """
 
 import ast
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -20,51 +16,30 @@ import torch
 import reveal_tpu.align.rem as jax_rem
 import reveal_tpu.index.devloop as jax_devloop
 from reveal_tpu.core.io_fasta import fasta_writer
-from reveal_tpu.core.io_gfa import seq2node, write_gfa
-from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
 from reveal_tpu_torch.core.torchconfig import resolve_device
 from reveal_tpu_torch.index import devfrontier, devloop
 from reveal_tpu_torch.index import window_resolve as wr
+from torch_support import REPO, jax_gfa, write_population
 
-torch.set_num_threads(2)
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "reveal_tpu_torch"
-
-
-def _write_pair(tmp_path, length, seed=1):
-    pop = simulate_population(2, length, seed=seed)
-    fastas = []
-    for name, seq, _ids in pop:
-        fn = str(tmp_path / (name + ".fa"))
-        fasta_writer(fn, [(name, seq)])
-        fastas.append(fn)
-    return fastas
-
-
-def _gfa(G, idx, fn):
-    seq2node(G, idx.main.T)
-    write_gfa(G, idx.main.T, outputfile=fn)
-    with open(fn, "rb") as fh:
-        return fh.read()
 
 
 def test_slice_matches_jax_hybrid_and_host_engine(tmp_path):
     """simulate_population(2, 200_000, seed=1): 182 deferred roots, 11
     levels, 78 repair rounds."""
-    fastas = _write_pair(tmp_path, 200_000)
+    fastas = write_population(tmp_path, 2, 200_000, 1)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    host = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
 
     G, idx = jax_rem.align_genomes(fastas, backend="auto", frontier=True)
     jax_stats = dict(jax_devloop.LAST_STATS)
-    jax_gfa = _gfa(G, idx, str(tmp_path / "jax.gfa"))
+    jax_hybrid = jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
 
     before = wr.LAUNCHES
     G, idx = port_rem.align_genomes(fastas, device="cpu")
     st = dict(devloop.LAST_STATS)
-    port = _gfa(G, idx, str(tmp_path / "port.gfa"))
+    port = port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa"))
 
     assert jax_stats["abort"] == 0 and jax_stats["forest"] > 0
     assert st["abort"] == 0 and st["fallback"] is None
@@ -73,43 +48,8 @@ def test_slice_matches_jax_hybrid_and_host_engine(tmp_path):
         assert st[k] == jax_stats[k], k
     assert st["repair_steps"] > 0
     assert wr.LAUNCHES == before  # CPU tensors take the plain path
-    assert port == jax_gfa
+    assert port == jax_hybrid
     assert port == host
-
-
-_BLOCK_JAX = """
-import runpy, sys
-class _NoJax:
-    def find_spec(self, name, path=None, target=None):
-        if name in ("jax", "reveal_tpu") or name.startswith(
-                ("jax.", "jaxlib", "reveal_tpu.")):
-            raise ImportError("blocked: " + name)
-        return None
-sys.meta_path.insert(0, _NoJax())
-sys.argv = ["reveal_tpu_torch.cli"] + sys.argv[1:]
-runpy.run_module("reveal_tpu_torch.cli", run_name="__main__")
-assert not any(m in ("jax", "reveal_tpu")
-               or m.startswith(("jax.", "reveal_tpu.")) for m in sys.modules)
-"""
-
-
-def test_cli_runs_with_jax_blocked(tmp_path):
-    fastas = _write_pair(tmp_path, 20_000, seed=3)
-    out = str(tmp_path / "port.gfa")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
-    )
-    proc = subprocess.run(
-        [sys.executable, "-c", _BLOCK_JAX, "rem", *fastas, "--frontier",
-         "--device", "cpu", "-o", out],
-        capture_output=True, text=True, env=env, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
-    with open(out, "rb") as fh:
-        assert fh.read() == host
 
 
 def _imports(path):
@@ -170,13 +110,14 @@ def test_uncovered_inputs_raise(tmp_path):
     (tests/test_torch_frontier_routes.py)."""
     fa = _three_fastas(tmp_path)
     G, idx = jax_rem.align_genomes(fa[:2], backend="jax-dist")
-    want = _gfa(G, idx, str(tmp_path / "jax_dist.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "jax_dist.gfa"))
     G, idx = port_rem.align_genomes(fa[:2], device="cpu", backend="jax-dist")
-    assert _gfa(G, idx, str(tmp_path / "port_dist.gfa")) == want
+    got = port_rem.write_rem_gfa(G, idx, str(tmp_path / "port_dist.gfa"))
+    assert got == want
     G, idx = jax_rem.align_genomes(fa[:2], backend="jax")
-    want = _gfa(G, idx, str(tmp_path / "jax.gfa"))
+    want = jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
     G, idx = port_rem.align_genomes(fa[:2], device="cpu", backend="jax")
-    assert _gfa(G, idx, str(tmp_path / "port.gfa")) == want
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == want
     with pytest.raises(ValueError):
         port_rem.align_genomes(fa[:1], device="cpu")
 
@@ -184,24 +125,15 @@ def test_uncovered_inputs_raise(tmp_path):
 def test_three_fastas_match_the_host_engine(tmp_path):
     """Three samples, one of two contigs (once uncovered, item 6): the
     multi-genome loop on the CPU writes the host engine's GFA."""
-    from reveal_tpu.align.graphops import prune_nodes as jax_prune
-    from reveal_tpu_torch.align.graphops import prune_nodes
-    from reveal_tpu_torch.core.io_gfa import seq2node as p_s2n
-    from reveal_tpu_torch.core.io_gfa import write_gfa as p_wg
     from reveal_tpu_torch.index import devloop_multi
 
     fa = _three_fastas(tmp_path)
     G, idx = jax_rem.align_genomes(fa, backend="auto")
-    jax_prune(G, T=idx.main.T)
-    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    host = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
     G, idx = port_rem.align_genomes(fa, device="cpu")
     st = dict(devloop_multi.LAST_STATS)
     assert st["abort"] == 0 and st["fallback"] is None and st["paths"] == 4
-    prune_nodes(G, T=idx.main.T)
-    p_s2n(G, idx.main.T)
-    p_wg(G, idx.main.T, outputfile=str(tmp_path / "port.gfa"))
-    with open(tmp_path / "port.gfa", "rb") as fh:
-        assert fh.read() == host
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == host
 
 
 def test_cli_flags_match_the_reveal_tpu_cli(tmp_path):
@@ -216,7 +148,7 @@ def test_cli_flags_match_the_reveal_tpu_cli(tmp_path):
     from reveal_tpu_torch import cli as port_cli
     from reveal_tpu_torch.index import devfrontier
 
-    fastas = _write_pair(tmp_path, 30_000, seed=11)
+    fastas = write_population(tmp_path, 2, 30_000, 11)
     flags = ["-m", "16", "-n", "2", "--maxmums", "10", "--wscore", "2",
              "--wpen", "3", "--pcutoff", "1e-6"]
     frontier_flags = ["--seedsize", "30", "--gcmodel", "star-avg",
@@ -253,11 +185,9 @@ def test_kernel_abort_falls_back_to_host_engine(tmp_path, monkeypatch):
     finishes the pair with the host engine's node state and text, both
     codes recorded and the serial host engine never called (the name is
     from when it finished on the host engine)."""
-    from test_torch_frontier_routes import node_state
-
-    fastas = _write_pair(tmp_path, 20_000, seed=5)
+    fastas = write_population(tmp_path, 2, 20_000, 5)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    want_state, want_T = node_state(G), idx.main.T.copy()
+    want_state, want_T = port_rem.node_state(G), idx.main.T.copy()
     monkeypatch.setattr(devloop, "_LMAX", 1)
     monkeypatch.setattr(port_rem, "_align_loop", _refused)
     G, idx = port_rem.align_genomes(fastas, device="cpu")
@@ -267,7 +197,7 @@ def test_kernel_abort_falls_back_to_host_engine(tmp_path, monkeypatch):
     assert st["fallback"] == "forest: %s; single-root loop: %s" % (code,
                                                                    code)
     assert devfrontier.LAST_STATS["fallback"] == st["fallback"]
-    assert node_state(G) == want_state
+    assert port_rem.node_state(G) == want_state
     np.testing.assert_array_equal(idx.main.T, want_T)
 
 
@@ -293,9 +223,9 @@ def test_declined_input_raises_on_cuda(tmp_path, monkeypatch, stage):
     the CPU."""
     import reveal_tpu_torch.native as native
 
-    fastas = _write_pair(tmp_path, 20_000, seed=5)
+    fastas = write_population(tmp_path, 2, 20_000, 5)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    host = _gfa(G, idx, str(tmp_path / "host.gfa"))
+    host = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
     monkeypatch.setattr(port_rem, "resolve_device",
                         lambda _d: torch.device("cuda"))
     routes = []
@@ -323,4 +253,4 @@ def test_declined_input_raises_on_cuda(tmp_path, monkeypatch, stage):
                       ("prefix",), ("loop", "cuda")]
     assert devloop.LAST_STATS["fallback"] == why
     assert devloop.LAST_STATS["abort"] == 0
-    assert _gfa(G, idx, str(tmp_path / "port.gfa")) == host
+    assert port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa")) == host

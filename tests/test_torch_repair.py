@@ -33,9 +33,7 @@ from reveal_tpu_torch.core.textstore import TextStore
 from reveal_tpu_torch.index import devloop, repair
 from reveal_tpu_torch.index.esa_index import ESAIndex
 from reveal_tpu_torch.native import rem2_defer_native
-from test_torch_devloop import _case
-
-torch.set_num_threads(2)
+from torch_support import devloop_case
 
 BLOCK = 256     # threads of one block of the kernel
 
@@ -120,7 +118,7 @@ def assert_same(got, want):
 def _capture(name, monkeypatch):
     """Every repair pass forest_run makes on a test_torch_devloop case:
     its inputs and what the CPU path made of them."""
-    seqa, seqb, minl = _case(name)
+    seqa, seqb, minl = devloop_case(name)
     ts = TextStore()
     for nm, seq in (("a", seqa), ("b", seqb)):
         ts.add_sample(nm)

@@ -20,8 +20,7 @@ from reveal_tpu.index.suffix import build_esa_jax
 from reveal_tpu_torch.core.textstore import TextStore
 from reveal_tpu_torch.index import suffix
 from reveal_tpu_torch.index.esa_index import ESAIndex
-
-torch.set_num_threads(2)
+import torch_support  # noqa: F401  (the thread budget)
 
 
 def _bytes(s):

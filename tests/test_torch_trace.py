@@ -19,6 +19,7 @@ from reveal_tpu_torch import cli
 from reveal_tpu_torch.core import trace
 from reveal_tpu_torch.index import devfrontier, devloop, devloop_multi
 from reveal_tpu_torch.utils.simulate import simulate_population
+import torch_support  # noqa: F401  (the thread budget)
 
 REM = ("rem.read", "rem.esa", "rem.replay", "rem.finish", "rem.write")
 ROUTES = {
@@ -33,15 +34,6 @@ MULTI = ("multi.enumerate", "multi.trim", "multi.chain", "multi.split",
          "multi.repair")
 FRONTIER = ("frontier.enumerate", "frontier.pick", "frontier.apply",
             "frontier.repair", "frontier.order")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads for this file's tests, restored after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

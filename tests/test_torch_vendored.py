@@ -12,25 +12,18 @@ their path inside that tree), and what is listed here.
 
 import ast
 import importlib
-import importlib.util
 import inspect
-import os
 import pathlib
-import subprocess
-import sys
 
 import pytest
-import torch
 
 import reveal_tpu.align.rem as jax_rem
-from reveal_tpu.core.io_fasta import fasta_writer
-from reveal_tpu.core.io_gfa import seq2node, write_gfa
 from reveal_tpu.utils.simulate import simulate_population
 from reveal_tpu_torch.align import rem as port_rem
+from torch_support import (REPO, cli_args, jax_gfa, jax_refined,
+                           pin_jax_two_phase, refine_graphs,
+                           run_port, write_population)
 
-torch.set_num_threads(2)
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "reveal_tpu_torch"
 ORIG = REPO / "reveal_tpu"
 
@@ -52,9 +45,12 @@ def test_no_module_of_the_port_imports_jax_or_reveal_tpu():
     banned = ("jax", "jaxlib", "reveal_tpu")
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
-    for path in files:
+    # chip_smoke.py imports the tests' support module, whose functions
+    # that compare with the JAX package import it when they run
+    support = REPO / "tests" / "torch_support.py"
+    for path in files + [support]:
         tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
+        for node in (tree.body if path == support else ast.walk(tree)):
             mods = []
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
@@ -75,77 +71,63 @@ def test_no_module_of_the_port_imports_jax_or_reveal_tpu():
 # (b) the CLI with both packages blocked
 # --------------------------------------------------------------------------
 
-_BLOCKED = """
-import runpy, sys
-class _Blocked:
-    def find_spec(self, name, path=None, target=None):
-        if name in ("jax", "reveal_tpu") or name.startswith(
-                ("jax.", "jaxlib", "reveal_tpu.")):
-            raise ImportError("blocked: " + name)
-        return None
-sys.meta_path.insert(0, _Blocked())
-sys.argv = ["reveal_tpu_torch.cli"] + sys.argv[1:]
-runpy.run_module("reveal_tpu_torch.cli", run_name="__main__")
-assert not any(m in ("jax", "reveal_tpu")
-               or m.startswith(("jax.", "reveal_tpu.")) for m in sys.modules)
-"""
+def _rem_case(tmp_path, fastas, flags, **cfg):
+    """``rem`` of ``fastas`` with ``flags``, and the JAX package's host
+    engine's GFA of the same input (``cfg``) to hold it to."""
+    G, idx = jax_rem.align_genomes(fastas, backend="auto", **cfg)
+    want = jax_gfa(G, idx, str(tmp_path / "host.gfa"))
+    return ["rem", *fastas, *flags, "--device", "cpu", "-o",
+            str(tmp_path / "port.gfa")], want
 
 
-def _run_blocked(args, cwd=None):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + (
-        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
-    )
-    return subprocess.run(
-        [sys.executable, "-c", _BLOCKED, *args],
-        capture_output=True, text=True, env=env, timeout=600, cwd=cwd,
-    )
+@pytest.mark.parametrize("case", ["rem-pair", "rem-three",
+                                  "rem-notrim-pair", "realign-chain",
+                                  "align-run"])
+def test_cli_runs_with_jax_and_reveal_tpu_blocked(tmp_path, monkeypatch,
+                                                 case):
+    """The port's CLI in a process that cannot import jax or reveal_tpu,
+    on each of its routes, held to the JAX package where it can be:
 
-
-def test_refine_cli_runs_with_jax_and_reveal_tpu_blocked(tmp_path):
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    gfa = str(tmp_path / "chain.gfa")
-    want = smoke.write_bubble_chain(gfa, seed=2, n_small=2, small=40,
-                                    n_big=1, big=90)
-    out = str(tmp_path / "refined.gfa")
-    proc = _run_blocked(["refine", gfa, "--all", "--minsize", "2",
-                         "--nrefinements", "10", "--device", "cpu",
-                         "-o", out])
+    - ``rem-pair``: a 20 kbp pair through the host prefix and forest
+      (``--frontier``), the host engine's GFA bytes;
+    - ``rem-three``: three genomes of 3 kbp through the multi loop, the
+      host engine's GFA bytes;
+    - ``rem-notrim-pair``: a 5 kbp pair with ``--notrim`` through the
+      per-level frontier, the bytes of the host engine with ``trim=False``;
+    - ``realign-chain``: a bubble chain through ``realign`` (the alias of
+      ``refine``), the bytes of the JAX package's two-phase refine;
+    - ``align-run``: the whole pipeline (rem, unzip, refine, three
+      variants calls) on three genomes of 3 kbp, its six files written.
+    """
+    if case == "rem-pair":
+        argv, want = _rem_case(tmp_path, write_population(
+            tmp_path, 2, 20_000, 3), ["--frontier"])
+    elif case == "rem-three":
+        argv, want = _rem_case(tmp_path, write_population(
+            tmp_path, 3, 3_000, 9), [])
+    elif case == "rem-notrim-pair":
+        argv, want = _rem_case(tmp_path, write_population(
+            tmp_path, 2, 5_000, 5), ["--notrim"], trim=False)
+    elif case == "realign-chain":
+        pin_jax_two_phase(monkeypatch)
+        gfa, kw, _ = refine_graphs(tmp_path)["chain"]
+        want = jax_refined(str(gfa), str(tmp_path / "jax.gfa"),
+                           consgap=False, **kw)
+        argv = ["realign", str(gfa), "--all", "--device", "cpu", "-o",
+                str(tmp_path / "port.gfa"), *cli_args(kw)]
+    else:
+        argv = ["align", *write_population(tmp_path, 3, 3_000, 4), "--run",
+                "--device", "cpu", "-o", "prg"]
+    proc = run_port(["-m", "reveal_tpu_torch.cli", *argv], blocked=True,
+                    cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    from reveal_tpu_torch.core.io_gfa import read_gfa
-    from reveal_tpu_torch.graph.extract import extract
-
-    G = read_gfa(out)
-    for path, seq in want.items():
-        assert extract(G, path).upper() == seq
-
-
-def test_rem_cli_runs_with_jax_and_reveal_tpu_blocked(tmp_path):
-    fastas = _write_pair(tmp_path, 20_000, seed=7)
-    out = str(tmp_path / "port.gfa")
-    proc = _run_blocked(["rem", *fastas, "--frontier", "--device", "cpu",
-                         "-o", out])
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert os.path.getsize(out) > 20_000
-
-
-def test_align_run_with_jax_and_reveal_tpu_blocked(tmp_path):
-    """The whole pipeline (rem, unzip, refine, three variants calls) in
-    one process that cannot import jax or reveal_tpu."""
-    fastas = []
-    for name, seq, _ids in simulate_population(3, 3_000, seed=4):
-        fn = str(tmp_path / (name + ".fa"))
-        fasta_writer(fn, [(name, seq)])
-        fastas.append(fn)
-    proc = _run_blocked(["align", *fastas, "--run", "--device", "cpu",
-                         "-o", "prg"], cwd=tmp_path)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    for ext in ("gfa", "unzipped.gfa", "unzipped.realigned.gfa",
-                "anchored.vcf", "unzipped.vcf", "refined.vcf"):
-        assert (tmp_path / ("prg." + ext)).stat().st_size > 0, ext
+    assert "declined" not in proc.stderr, proc.stderr[-3000:]
+    if case == "align-run":
+        for ext in ("gfa", "unzipped.gfa", "unzipped.realigned.gfa",
+                    "anchored.vcf", "unzipped.vcf", "refined.vcf"):
+            assert (tmp_path / ("prg." + ext)).stat().st_size > 0, ext
+    else:
+        assert (tmp_path / "port.gfa").read_bytes() == want
 
 
 # --------------------------------------------------------------------------
@@ -436,13 +418,16 @@ CHANGED = {
         ("cfg = PickerConfig(", "return G, idx"),
     ],
     # the loop runs on a device given; no environment switch to disable
-    # it; a --notrim input is not taken (the port's frontier honours it)
+    # it or to skip the host prefix and forest; a --notrim input is not
+    # taken (the port's frontier honours it)
     ("align.rem", "_rem_device_loop"): [
         ("G: PanGraph, t: IntervalIndex, root: ESAIndex, cfg: "
          "PickerConfig",) * 2,
         ('"""Whole-recursion DEVICE fast path',
          'kernel aborted (caller falls back)."""'),
         ('if os.environ.get("REVEAL_TPU_DISABLE_DEVLOOP"):', "return None"),
+        ("mode = os.environ.get(", '"hybrid")'),
+        ('if mode == "hybrid":',) * 2,
         ("steps = _rem_device_hybrid(G, t, root, cfg)",) * 2,
         ("from ..index.devloop import rem_device_loop",) * 2,
         ("res = rem_device_loop(",) * 2,
@@ -511,32 +496,12 @@ def test_native_library_builds_into_the_port():
 # (d) the port's host engine equals reveal_tpu's
 # --------------------------------------------------------------------------
 
-def _write_pair(tmp_path, length, seed=1):
-    pop = simulate_population(2, length, seed=seed)
-    fastas = []
-    for name, seq, _ids in pop:
-        fn = str(tmp_path / (name + ".fa"))
-        fasta_writer(fn, [(name, seq)])
-        fastas.append(fn)
-    return fastas
-
-
-def _gfa(G, idx, fn, s2n=seq2node, wg=write_gfa):
-    s2n(G, idx.main.T)
-    wg(G, idx.main.T, outputfile=fn)
-    with open(fn, "rb") as fh:
-        return fh.read()
-
-
 def test_host_engine_writes_the_same_gfa(tmp_path):
-    from reveal_tpu_torch.core.io_gfa import seq2node as p_s2n
-    from reveal_tpu_torch.core.io_gfa import write_gfa as p_wg
-
-    fastas = _write_pair(tmp_path, 200_000)
+    fastas = write_population(tmp_path, 2, 200_000, 1)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    ref = _gfa(G, idx, str(tmp_path / "jax.gfa"))
+    ref = jax_gfa(G, idx, str(tmp_path / "jax.gfa"))
     G, idx = port_rem.align_genomes_host(fastas)
-    got = _gfa(G, idx, str(tmp_path / "port.gfa"), p_s2n, p_wg)
+    got = port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa"))
     assert got == ref
 
 
@@ -546,14 +511,12 @@ def test_host_engine_writes_the_same_gfa_gz(tmp_path):
     import gzip
 
     from reveal_tpu_torch.core import gzwrite
-    from reveal_tpu_torch.core.io_gfa import seq2node as p_s2n
-    from reveal_tpu_torch.core.io_gfa import write_gfa as p_wg
 
-    fastas = _write_pair(tmp_path, 200_000)
+    fastas = write_population(tmp_path, 2, 200_000, 1)
     G, idx = jax_rem.align_genomes(fastas, backend="auto")
-    ref = gzip.decompress(_gfa(G, idx, str(tmp_path / "jax.gfa.gz")))
+    ref = gzip.decompress(jax_gfa(G, idx, str(tmp_path / "jax.gfa.gz")))
     G, idx = port_rem.align_genomes_host(fastas)
-    got = _gfa(G, idx, str(tmp_path / "port.gfa.gz"), p_s2n, p_wg)
+    got = port_rem.write_rem_gfa(G, idx, str(tmp_path / "port.gfa.gz"))
     assert gzwrite.LAST_STATS["gz_bytes"] == len(got)
     assert gzwrite.LAST_STATS["chunks"] > 1
     assert gzip.decompress(got) == ref

@@ -16,8 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from reveal_tpu.index.devloop import _make_window_resolve
 from reveal_tpu_torch.index import window_resolve as wr
-
-torch.set_num_threads(2)
+import torch_support  # noqa: F401  (the thread budget)
 
 WRV = 256
 
